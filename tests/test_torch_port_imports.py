@@ -1,0 +1,74 @@
+"""The port stands alone: no JAX, and CUDA is never silently the CPU.
+
+An AST scan, not a ``sys.modules`` check: the interpreter here imports jax
+at start-up, so only the source can show what the port imports.
+"""
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import tinysplat_torch as tt
+from tinysplat_torch.data.synthetic import orbit_cameras, synthetic_pcd
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tinysplat_tpu")
+
+
+def _port_sources():
+    root = os.path.join(REPO, "tinysplat_torch")
+    paths = [os.path.join(d, f) for d, _, files in os.walk(root)
+             for f in files if f.endswith(".py")]
+    return sorted(paths) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_port_imports_no_jax():
+    paths = _port_sources()
+    assert len(paths) > 15 and all(os.path.exists(p) for p in paths)
+    for path in paths:
+        for mod in _imported_modules(path):
+            assert mod.split(".")[0] not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_cuda_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    cam = orbit_cameras(1, width=32, height=32)[0]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cam.params()  # default device="cuda"
+    pcd = synthetic_pcd(50, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tt.init_from_pcd(pcd.xyz, pcd.colors)
+    state = tt.init_from_pcd(pcd.xyz, pcd.colors, device="cpu")
+    sd = tt.state_dict(state)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tt.from_state_dict(sd)
+    path = str(tmp_path / "m.npz")
+    np.savez(path, **{f"model/{k}": v for k, v in sd.items()})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tt.load_model(path)
+    leaves = {k: getattr(state.params, k).numpy() for k in
+              ("means", "colors_dc", "colors_rest", "scales", "quats", "opacities")}
+    leaves.update(alive=state.alive.numpy(), active_sh_degree=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tt.from_jax_params(leaves, "cuda")
+    from tinysplat_torch import render_path
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_path.main([path, str(tmp_path / "out"), "--frames", "1"])
+    assert not (tmp_path / "out").exists()

@@ -1,0 +1,89 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface. On first use it is compiled
+by ``nvcc`` for ``sm_90a`` into a shared library under
+``build/torch_kernels/`` at the repository root and loaded with ``ctypes``.
+The library's file name carries a hash of its source, so an edited source
+is rebuilt and a stale library is never loaded. Several sources build in
+parallel: one ``nvcc`` process each, all started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+KERNELS = ("composite_fwd",)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
+                           "kernels build only on a machine with the CUDA toolkit")
+    return path
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
+    """Compile every named kernel whose library is missing, in parallel.
+
+    Each build writes to a temporary file and renames it into place, so a
+    concurrent loader never sees half a library. nvcc's output (with
+    ptxas's register and spill report) is kept beside the library as
+    ``<library>.log``. Raises with that output if a build fails.
+    """
+    names = list(names)
+    paths = {name: library_path(name) for name in names}
+    todo = [name for name in names if not paths[name].exists()]
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for name, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode == 0:
+            paths[name].with_suffix(".log").write_text(log)
+            os.replace(tmp, paths[name])
+        else:
+            os.unlink(tmp)
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built first if needed)."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,242 @@
+"""Tile binning: splats -> (tile, depth)-sorted intersection entries.
+
+Torch port of ``tinysplat_tpu.ops.binning.bin_splats_dense``. It keeps that
+function's contract slot for slot — the same entries in the same order, the
+same capacities, defaults and overflow counters — but not its TPU layout
+tricks: the JAX package expands entries with scatters and cumulative-max
+fills because XLA:TPU gathers are slow; here ``torch.repeat_interleave``
+expands and one stable ``torch.sort`` orders.
+
+Semantics (``_sorted_intersections``):
+
+1. Splats are depth-sorted (stable; invalid splats last): ``order``.
+2. Each live splat covers a rectangle of tiles (its 3-sigma AABB,
+   ``projection.tile_ranges``), tightened — when conics and opacities are
+   given — to the ellipse where ``opacity * exp(-sigma) >= 1/255``. That
+   cull is exact: a (splat, tile) pair outside the ellipse composites zero.
+3. Splats in depth order expand into one span per tile row (at most
+   ``span_capacity`` spans; the rest are dropped), and each span into one
+   entry per tile of the row, clipped to the ellipse's x-extent over that
+   row's pixel band (at most ``dup_capacity`` entries).
+4. A stable sort by tile id leaves each tile's entries front to back.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .projection import tile_ranges
+from .rasterize_dense import ALPHA_EPS
+
+
+class DenseBins(NamedTuple):
+    """Unpadded (tile, depth)-sorted intersection layout.
+
+    Tile t's entries occupy ``entry_rank[tile_starts[t]:][:counts[t]]``;
+    entries past ``max_per_tile`` stay in the array (the segment's
+    farthest) but are left out of ``counts``. One trailing pad chunk
+    follows the kept entries, as in the JAX layout.
+    """
+
+    entry_rank: torch.Tensor  # (dup_capacity + chunk,) int32 DEPTH RANKS, -1 pad
+    order: torch.Tensor  # (N,) int32 depth sort: original id = order[rank]
+    tile_starts: torch.Tensor  # (num_tiles,) int32 segment start per tile
+    counts: torch.Tensor  # (num_tiles,) int32 clamped to max_per_tile
+    num_entries: int  # kept entries (<= dup_capacity)
+    total_intersections: int  # before the dup_capacity clamp
+    dup_overflow: int  # entries dropped by dup_capacity / span_capacity
+    tile_overflow: int  # entries dropped by max_per_tile
+
+
+def _ellipse_constants(xys, conics, opacities):
+    """Per-splat constants of the exact alpha-test ellipse cull.
+
+    conic = [A, B, C]; sigma(d) = 0.5 (A dx^2 + C dy^2) + B dx dy <= t_s with
+    t_s = log(opacity / ALPHA_EPS). The x half-extent at offset dy is
+    f(dy) = p1*dy + inva*sqrt(k1*dy^2 + k2), concave, maximal at dystar.
+    """
+    A = torch.clamp(conics[:, 0], min=1e-12)
+    B = conics[:, 1]
+    C = torch.clamp(conics[:, 2], min=1e-12)
+    op = opacities.reshape(-1).to(torch.float32)
+    t_s = torch.log(torch.clamp(op, min=1e-30) / ALPHA_EPS)
+    det = torch.clamp(A * C - B * B, min=1e-20)
+    t2 = 2.0 * torch.clamp(t_s, min=0.0)
+    return dict(
+        t_s=t_s,
+        dymax=torch.sqrt(t2 * A / det),  # ellipse y half-extent (pixels)
+        dxg=torch.sqrt(t2 * C / det),  # ellipse x half-extent (global max)
+        p1=-B / A,
+        k1=-det,
+        k2=t2 * A,
+        inva=1.0 / A,
+        dystar=-B * torch.sqrt(t2 / (C * det)),
+        cx=xys[:, 0].to(torch.float32),
+        cy=xys[:, 1].to(torch.float32),
+    )
+
+
+def _span_extent(e, tile_row, ts_f, ts_x, bx0, width):
+    """First tile column and length of each span, clipped to the ellipse's
+    x-extent over the span's 16-px row band (``e``: per-span constants)."""
+    dy0 = tile_row * ts_f - e["cy"]
+    dy1 = dy0 + (ts_f - 1.0)
+
+    def f_of(dy):  # x half-extent of the ellipse at offset dy
+        return e["p1"] * dy + e["inva"] * torch.sqrt(
+            torch.clamp(e["k1"] * dy * dy + e["k2"], min=0.0))
+
+    def band_max(lo, hi):  # max of concave f over [lo, hi]
+        lo_c = torch.minimum(torch.maximum(lo, -e["dymax"]), e["dymax"])
+        hi_c = torch.minimum(torch.maximum(hi, -e["dymax"]), e["dymax"])
+        inside = (e["dystar"] >= lo_c) & (e["dystar"] <= hi_c)
+        return torch.where(inside, e["dxg"], torch.maximum(f_of(lo_c), f_of(hi_c)))
+
+    dx_hi = band_max(dy0, dy1)
+    dx_lo = -band_max(-dy1, -dy0)  # min of x extent = -max of mirrored f
+    x_last = bx0 + width - 1.0  # inclusive last tile of the rect
+    tx0 = torch.minimum(torch.maximum(torch.floor((e["cx"] + dx_lo) / ts_x), bx0), x_last)
+    tx1 = torch.minimum(torch.maximum(torch.floor((e["cx"] + dx_hi) / ts_x), tx0), x_last)
+    return tx0, tx1 - tx0 + 1.0
+
+
+def _sorted_intersections(xys, depths, radii, valid, tiles_x, tiles_y, tile_size,
+                          dup_capacity, span_capacity=0, conics=None, opacities=None,
+                          tile_size_x=0):
+    """(sorted_rank, tile_starts, full_counts, total, order, span_overflow):
+    the kept entries' depth ranks in (tile, depth) order, each tile's range,
+    the entry total before the dup_capacity clamp, the depth order and the
+    entries lost to span_capacity; see the module docstring."""
+    dev = xys.device
+    num_tiles = tiles_x * tiles_y
+    n = xys.shape[0]
+    if span_capacity <= 0:
+        span_capacity = max(dup_capacity // 2, 2 * n)
+    tile_size_x = tile_size_x or tile_size
+    ts_f, ts_x = float(tile_size), float(tile_size_x)
+    i64 = torch.int64
+
+    with torch.no_grad():
+        bx0, bx1, by0, by1 = tile_ranges(xys, radii, tiles_x, tiles_y, tile_size,
+                                         tile_size_x=tile_size_x)
+        clip = conics is not None and opacities is not None
+        if clip:
+            e = _ellipse_constants(xys, conics, opacities)
+            bx0 = torch.maximum(bx0, torch.floor((e["cx"] - e["dxg"]) / ts_x).to(torch.int32))
+            bx1 = torch.minimum(bx1, torch.floor((e["cx"] + e["dxg"]) / ts_x).to(torch.int32) + 1)
+            by0 = torch.maximum(by0, torch.floor((e["cy"] - e["dymax"]) / ts_f).to(torch.int32))
+            by1 = torch.minimum(by1, torch.floor((e["cy"] + e["dymax"]) / ts_f).to(torch.int32) + 1)
+            alive = valid & (e["t_s"] > 0.0)
+        else:
+            alive = valid
+        widths = torch.clamp(bx1 - bx0, min=0)
+        rows = torch.where(alive & (widths > 0), torch.clamp(by1 - by0, min=0), 0)
+
+        order = torch.sort(torch.where(valid, depths, torch.inf), stable=True).indices
+        rows_o = rows[order].to(i64)
+        width_o = torch.clamp(widths, min=1)[order].to(torch.float32)
+        bx0_o = bx0[order].to(torch.float32)
+        by0_o = by0[order].to(torch.float32)
+
+        # Level 1: splats (depth order) -> one span per covered tile row.
+        starts1 = torch.cumsum(rows_o, 0) - rows_o
+        total_spans = int(rows_o.sum())
+        kept_spans = min(total_spans, span_capacity)
+        span_rank = torch.repeat_interleave(
+            torch.arange(n, device=dev), rows_o, output_size=total_spans)[:kept_spans]
+        row_idx = torch.arange(kept_spans, device=dev) - starts1[span_rank]
+        tile_row = by0_o[span_rank] + row_idx.to(torch.float32)
+        sp_bx0 = bx0_o[span_rank]
+        if clip:
+            es = {k: v[order][span_rank] for k, v in e.items() if k != "t_s"}
+            tx0, span_len_f = _span_extent(es, tile_row, ts_f, ts_x, sp_bx0,
+                                           width_o[span_rank])
+        else:
+            tx0, span_len_f = sp_bx0, width_o[span_rank]
+        span_len = span_len_f.to(i64)
+        span_base = (tile_row * tiles_x + tx0).to(i64)
+
+        # Level 2: spans -> entries (every kept span has length >= 1).
+        starts2 = torch.cumsum(span_len, 0) - span_len
+        total = int(span_len.sum())
+        span_overflow = max(total_spans - span_capacity, 0)
+        if span_overflow:
+            # Dropped spans never materialize: count their entries at the
+            # mean kept-span width (ceil), as the JAX package does.
+            mean_w = -(-total // kept_spans) if kept_spans > 0 else 1
+            span_overflow *= max(mean_w, 1)
+        kept = min(total, dup_capacity)
+        entry_span = torch.repeat_interleave(
+            torch.arange(kept_spans, device=dev), span_len, output_size=total)[:kept]
+        tile_of = span_base[entry_span] + (
+            torch.arange(kept, device=dev) - starts2[entry_span])
+        depth_rank = span_rank[entry_span]
+
+        # Entries are generated in depth order, so one stable sort by tile
+        # leaves every tile's entries front to back.
+        sorted_tile, perm = torch.sort(tile_of, stable=True)
+        sorted_rank = depth_rank[perm]
+        tile_starts = torch.searchsorted(
+            sorted_tile, torch.arange(num_tiles, device=dev, dtype=i64))
+        tile_ends = torch.cat([tile_starts[1:], tile_starts.new_tensor([kept])])
+        full_counts = tile_ends - tile_starts
+    return sorted_rank, tile_starts, full_counts, total, order, span_overflow
+
+
+def bin_splats_dense(
+    xys: torch.Tensor,
+    depths: torch.Tensor,
+    radii: torch.Tensor,
+    valid: torch.Tensor,
+    tiles_x: int,
+    tiles_y: int,
+    tile_size: int = 16,
+    chunk: int = 128,
+    dup_capacity: int = 0,
+    max_per_tile: int = 0,
+    span_capacity: int = 0,
+    conics: Optional[torch.Tensor] = None,
+    opacities: Optional[torch.Tensor] = None,
+    row_stride: int = 1,
+    row_offset=0,
+    tile_size_x: int = 0,
+) -> DenseBins:
+    """Build the unpadded dense intersection layout (see DenseBins).
+
+    Defaults and rounding as in the JAX package: ``dup_capacity`` 8*N
+    rounded up to ``chunk``; ``max_per_tile`` min(4096, max(dup_capacity /
+    num_tiles, 2*chunk)) rounded up to ``chunk``; ``span_capacity``
+    max(dup_capacity // 2, 2*N). Strided tile-row banding (``row_stride``
+    != 1) belongs to the sharded trainer and is not ported.
+    """
+    if row_stride != 1 or row_offset != 0:
+        raise NotImplementedError("strided tile-row banding (row_stride != 1) is not ported")
+    n = xys.shape[0]
+    num_tiles = tiles_x * tiles_y
+    if dup_capacity <= 0:
+        dup_capacity = 8 * n
+    dup_capacity = (dup_capacity + chunk - 1) // chunk * chunk
+    if max_per_tile <= 0:
+        max_per_tile = min(4096, max(dup_capacity // max(num_tiles, 1), 2 * chunk))
+    max_per_tile = (max_per_tile + chunk - 1) // chunk * chunk
+
+    sorted_rank, tile_starts, full_counts, total, order, span_overflow = \
+        _sorted_intersections(
+            xys, depths, radii, valid, tiles_x, tiles_y, tile_size, dup_capacity,
+            span_capacity=span_capacity, conics=conics, opacities=opacities,
+            tile_size_x=tile_size_x)
+    counts = torch.clamp(full_counts, max=max_per_tile)
+    entry_rank = torch.full((dup_capacity + chunk,), -1, dtype=torch.int32,
+                            device=xys.device)
+    entry_rank[: sorted_rank.shape[0]] = sorted_rank.to(torch.int32)
+    return DenseBins(
+        entry_rank=entry_rank,
+        order=order.to(torch.int32),
+        tile_starts=tile_starts.to(torch.int32),
+        counts=counts.to(torch.int32),
+        num_entries=min(total, dup_capacity),
+        total_intersections=total,
+        dup_overflow=max(total - dup_capacity, 0) + span_overflow,
+        tile_overflow=int((full_counts - counts).sum()),
+    )
