@@ -15,10 +15,20 @@ exits non-zero):
    ``load_model`` and rendered along an orbit through ``render``. The launch
    counts show the frames went through K1; the frames are checked, and K1
    is held against its plain version and timed at the frames' own shapes.
+5. Hold K2 (``composite_bwd``) and K3 (``segsum``) against their plain
+   versions on phase 3's cases, with a numpy-drawn cotangent: per-entry rows
+   and the per-splat rows of all four ``grad_reduce`` strategies.
+6. Train at full width: the bench scene, GT frames rendered from it at 4
+   orbit cameras, training from dimmed opacities and perturbed colours. 10
+   steps with ``grad_reduce="scatter"`` (K1 and K2 launch once per step; the
+   loss falls), then 3 with ``"mxu"`` (K3 once per step; its gradients equal
+   the scatter path's). K2 and K3 are held against their plain versions and
+   timed at step 0's shapes, and the step is broken down into layers.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import os
 import statistics
@@ -34,6 +44,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_SPLATS = 1 << 18
 HEIGHT, WIDTH = 1066, 1600
 FRAMES, WARMUP = 8, 2
+TRAIN_VIEWS, SCATTER_STEPS, MXU_STEPS = 4, 10, 3
 # Binning budgets of the bench scene at 64x16 tiles, with headroom and no
 # dropped entries (the JAX package's bench.py sizes them the same way).
 RENDER_KW = dict(tile_x=64, dup_capacity=760_000, span_capacity=786_432,
@@ -49,8 +60,13 @@ FP32_FLOPS_PER_S = 67e12
 # FP32 operations K1 spends on every (entry, pixel) pair it evaluates:
 # dx, dy (2), sigma (9), exp (1), opacity * exp (1), min (1) and the sigma
 # and alpha tests (2). Contributing pairs cost 12 more; not counted, so the
-# bound stays a lower bound.
+# bound stays a lower bound. K2 rebuilds the same alpha for every pair it
+# walks, and is reckoned the same way (its ~40 more operations per
+# contributing pair and its pixel sums are not counted).
 FLOP_PER_PAIR = 16
+# K2 vs its plain version, and the per-splat reductions: the masks are K1's
+# bit for bit, only the order of the pixel sums differs.
+BWD_TOL = 1e-5
 
 
 def gpu_name_and_limit() -> str:
@@ -136,6 +152,208 @@ def where_the_time_goes(torch, frame_ms, layers):
         total += ms
         print(f"  layer {name}: {ms:.3f} ms", flush=True)
     print(f"  layers sum {total:.3f} ms of a {frame_ms:.3f} ms frame", flush=True)
+
+
+def column_err(torch, got, ref):
+    """(max abs error, max error / the column's max |ref|) of (R, 10) rows."""
+    if got.numel() == 0:
+        return 0.0, 0.0
+    diff = (got - ref).abs()
+    scale = ref.abs().amax(dim=0).clamp(min=1e-30)
+    return float(diff.max()), float((diff / scale).max())
+
+
+def plain_reduce(rc, rows, entry_rank, n, strategy):
+    """The per-splat rows of ``strategy`` with K3's plain version in place
+    of K3 (the other strategies are plain torch ops)."""
+    if strategy != "mxu":
+        return rc.reduce_entry_grads(rows, entry_rank, n, strategy)
+    return rc.segsum_plain(*rc.segsum_inputs(rows, entry_rank, n))
+
+
+def compare_backward(torch, rc, ti, out, gout, label):
+    """K2 and K3 vs their plain versions on one case; raises past BWD_TOL.
+
+    Returns (K2 max abs error, K3 max abs error, K2 rows)."""
+    args = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy)
+    rows = rc.composite_bwd(*args, out, gout, ti.tile_x)
+    ref = rc.composite_bwd_plain(*args, out, gout, ti.tile_x)
+    torch.cuda.synchronize()
+    k2_err, k2_scaled = column_err(torch, rows, ref)
+    n = ti.table.shape[0] - 1
+    gs, bounds = rc.segsum_inputs(rows, ti.entry_rank, n)
+    k3_err, k3_scaled = column_err(torch, rc.segsum(gs, bounds), rc.segsum_plain(gs, bounds))
+    reduced = {}
+    for strategy in rc.GRAD_REDUCE:
+        reduced[strategy] = column_err(
+            torch, rc.reduce_entry_grads(rows, ti.entry_rank, n, strategy),
+            plain_reduce(rc, ref, ti.entry_rank, n, strategy))[1]
+    live = int((ref.abs().amax(dim=1) > 0).sum())
+    print(f"  {label}: {live} live entry rows; max|K2-plain| {k2_err:.3e} (scaled "
+          f"{k2_scaled:.3e}); max|K3-plain| {k3_err:.3e} (scaled {k3_scaled:.3e}); "
+          f"per-splat rows, scaled error by strategy "
+          f"{ {k: float(f'{v:.3e}') for k, v in reduced.items()} } (tol {BWD_TOL:g})",
+          flush=True)
+    if not torch.isfinite(rows).all():
+        raise AssertionError(f"K2 wrote non-finite values on {label}")
+    if max([k2_scaled, k3_scaled, *reduced.values()]) > BWD_TOL:
+        raise AssertionError(f"K2/K3 disagree with their plain versions on {label}")
+    return k2_err, k3_err, rows
+
+
+def random_cotangent(torch, out, seed):
+    """A numpy-drawn cotangent of K1's output rows 0-4 (the rows the
+    backward reads)."""
+    gout = torch.zeros_like(out)
+    draw = np.random.default_rng(seed).normal(size=tuple(out[:, 0:5].shape))
+    gout[:, 0:5] = torch.as_tensor(draw, dtype=torch.float32, device=out.device)
+    return gout
+
+
+def kernel_bound(in_bytes, out_bytes, flops):
+    """(bound ms, 'bytes' or 'operations') on the H100's published peaks."""
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def step_zero_backward_inputs(torch, rc, train, cam, gt, deg, cfg):
+    """K1's inputs and output at a training state, and the training loss's
+    own cotangent of K1's output (what K2 receives in that step)."""
+    from tinysplat_torch.ops.ssim import ssim
+    from tinysplat_torch.render import splat_inputs
+
+    bg = torch.zeros(3, device="cuda")
+    with torch.no_grad():
+        s = splat_inputs(train.params, train.alive, cam, HEIGHT, WIDTH, deg, bg)
+        ti = rc.tile_inputs(s.xys, s.proj.depths, s.proj.radii, s.proj.conics, s.colors4,
+                            s.opacities, s.valid, HEIGHT, WIDTH, **RENDER_KW)
+        out = rc.composite_fwd(ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx,
+                               ti.sy, ti.tile_x)
+    out_g = out.clone().requires_grad_()
+    img, _ = rc.untile(out_g, s.bg4, ti.tiles_x, ti.tiles_y, ti.tile_x, HEIGHT, WIDTH)
+    rgb = torch.clamp(img[..., :3], max=1.0)
+    loss = ((1.0 - cfg.lambda_dssim) * (rgb - gt).abs().mean()
+            + cfg.lambda_dssim * (1.0 - ssim(rgb, gt)))
+    (gout,) = torch.autograd.grad(loss, out_g)
+    return ti, out, gout
+
+
+def param_grads(torch, tt, state, cam, gt, step, cfg):
+    """Gradients of every parameter field and of the screen-xy probe for one
+    loss evaluation at ``state`` (nothing is updated)."""
+    probe = torch.zeros((state.capacity, 2), device="cuda", requires_grad=True)
+    for _, t in state.params.fields():
+        t.grad = None
+    loss, _ = tt.compute_losses(state.params, probe, state, cam, gt, None,
+                                torch.zeros(3, device="cuda"), step, cfg, HEIGHT, WIDTH)
+    loss.backward()
+    grads = {name: t.grad.clone() for name, t in state.params.fields()}
+    grads["xys"] = probe.grad.clone()
+    return grads
+
+
+def train_steps(torch, step_fn, state, opt, views, gts, first, count):
+    """Run ``count`` train steps from step ``first``; per step the metrics,
+    the CUDA-event ms, the host ms and whether every gradient is finite."""
+    log = []
+    for step in range(first, first + count):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = step_fn(state, opt, views[step % len(views)], gts[step % len(gts)], None, step)
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        finite = all(bool(torch.isfinite(t.grad).all()) for _, t in out.state.params.fields())
+        log.append((out.metrics, start.elapsed_time(end), host_ms, finite))
+        state = out.state
+    return state, log
+
+
+def check_steps(torch, log, label):
+    """Losses and gradients finite, nothing dropped by binning."""
+    for i, (metrics, _, _, finite) in enumerate(log):
+        if not (finite and bool(torch.isfinite(metrics["loss"]))):
+            raise AssertionError(f"{label} step {i}: non-finite loss or gradient")
+        if metrics["n_dup_dropped"] or metrics["n_tile_dropped"]:
+            raise AssertionError(f"{label} step {i}: binning dropped entries")
+
+
+def train_layers(torch, rc, tt, state, opt, cam, gt, cfg, step_ms):
+    """Each layer of a training step timed on its own (CUDA events, median
+    of 5), beside the step: the forward layers, the loss, the whole backward
+    and, within it, K2 and the reduction (the rest of the backward is
+    autograd through the permutation, projection, SH and the loss), then
+    Adam. Runs Adam 5 more times on the state."""
+    from tinysplat_torch.ops.ssim import ssim
+    from tinysplat_torch.render import splat_inputs
+
+    bg = torch.zeros(3, device="cuda")
+    deg = int(state.active_sh_degree)
+
+    def forward():
+        probe = torch.zeros((state.capacity, 2), device="cuda", requires_grad=True)
+        s = splat_inputs(state.params, state.alive, cam, HEIGHT, WIDTH, deg, bg,
+                         xys_probe=probe)
+        ti = rc.tile_inputs(s.xys, s.proj.depths, s.proj.radii, s.proj.conics, s.colors4,
+                            s.opacities, s.valid, HEIGHT, WIDTH, **RENDER_KW)
+        out = rc.composite_tiles(ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx,
+                                 ti.sy, ti.tile_x, cfg.grad_reduce)
+        img, _ = rc.untile(out, s.bg4, ti.tiles_x, ti.tiles_y, ti.tile_x, HEIGHT, WIDTH)
+        return s, ti, out, torch.clamp(img[..., :3], max=1.0)
+
+    def loss_of(rgb):
+        return ((1.0 - cfg.lambda_dssim) * (rgb - gt).abs().mean()
+                + cfg.lambda_dssim * (1.0 - ssim(rgb, gt)))
+
+    s, ti, out, rgb = forward()
+    args = (ti.table.detach(), ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy)
+    (gout,) = torch.autograd.grad(loss_of(rgb), out)
+    rows = rc.composite_bwd(*args, out.detach(), gout, ti.tile_x)
+    n = ti.table.shape[0] - 1
+    layers = {
+        "forward: splat_inputs (projection, SH, opacities)": lambda: splat_inputs(
+            state.params, state.alive, cam, HEIGHT, WIDTH, deg, bg),
+        "forward: tile_inputs (binning, table)": lambda: rc.tile_inputs(
+            s.xys, s.proj.depths, s.proj.radii, s.proj.conics, s.colors4, s.opacities,
+            s.valid, HEIGHT, WIDTH, **RENDER_KW),
+        "forward: composite_fwd (K1)": lambda: rc.composite_fwd(*args, ti.tile_x),
+        "forward: untile": lambda: rc.untile(out, s.bg4, ti.tiles_x, ti.tiles_y, ti.tile_x,
+                                             HEIGHT, WIDTH),
+        "loss (L1 + SSIM), forward": lambda: loss_of(rgb),
+        "backward: composite_bwd (K2)": lambda: rc.composite_bwd(
+            *args, out.detach(), gout, ti.tile_x),
+        f"backward: reduction ({cfg.grad_reduce})": lambda: rc.reduce_entry_grads(
+            rows, ti.entry_rank, n, cfg.grad_reduce),
+    }
+    times = {name: timed_ms(torch, fn, 5) for name, fn in layers.items()}
+    backward = []
+    for _ in range(5):
+        loss = loss_of(forward()[3])
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss.backward()
+        end.record()
+        end.synchronize()
+        backward.append(start.elapsed_time(end))
+    times["backward, all"] = statistics.median(backward)
+    times["backward: the rest of autograd (all - K2 - reduction)"] = (
+        times["backward, all"] - times["backward: composite_bwd (K2)"]
+        - times[f"backward: reduction ({cfg.grad_reduce})"])
+    times["Adam step"] = timed_ms(torch, opt.step, 5)
+    for name, ms in times.items():
+        print(f"  layer {name}: {ms:.3f} ms", flush=True)
+    total = sum(ms for name, ms in times.items()
+                if name.startswith(("forward:", "loss", "Adam")) or name == "backward, all")
+    print(f"  layers sum {total:.3f} ms of a {step_ms:.3f} ms step", flush=True)
 
 
 def write_bench_checkpoint(path, seed=0):
@@ -327,18 +545,161 @@ def main() -> int:
                                     HEIGHT, WIDTH),
     })
 
+
+    # -- 5. K2 and K3 vs plain on the synthetic cases ---------------------------
+    print("phase 5: K2 and K3 vs plain, synthetic cases", flush=True)
+    for i, (label, ti) in enumerate(cases):
+        out_c = rc.composite_fwd(ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx,
+                                 ti.sy, ti.tile_x)
+        compare_backward(torch, rc, ti, out_c, random_cotangent(torch, out_c, 100 + i), label)
+
+    # -- 6. training at full width ----------------------------------------------
+    import tinysplat_torch as tt
+    from tinysplat_torch.config import Config
+
+    print(f"phase 6: train {SCATTER_STEPS} + {MXU_STEPS} steps, {N_SPLATS} splats, "
+          f"{HEIGHT}x{WIDTH}, {TRAIN_VIEWS} views", flush=True)
+    views = [c.params(device="cuda")
+             for c in orbit_cameras(TRAIN_VIEWS, width=WIDTH, height=HEIGHT)]
+    with torch.no_grad():  # GT: the unperturbed scene of phase 4 over black
+        gts = [render(state.params, state.alive, cam, HEIGHT, WIDTH, deg, bg, **RENDER_KW)[0]
+               for cam in views]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "bench_scene.npz")
+        write_bench_checkpoint(ckpt)
+        train = load_model(ckpt, device="cuda")
+    noise = np.random.default_rng(7).normal(0.0, 0.1, size=tuple(train.params.colors_dc.shape))
+    with torch.no_grad():  # dimmed opacities, perturbed colours
+        live = train.alive[:, None]
+        train.params.opacities[:] = torch.where(live, -1.0, train.params.opacities)
+        train.params.colors_dc += torch.where(
+            live, torch.as_tensor(noise, dtype=torch.float32, device="cuda"), 0.0)
+    cfg = Config(background="black", warmup_grad=0, grad_reduce="scatter", **RENDER_KW)
+    opt = tt.init_opt_state(cfg, train)
+    step0_deg = min(cfg.sh_degree, 1)
+    ti0, out0, gout0 = step_zero_backward_inputs(torch, rc, train, views[0], gts[0],
+                                                 step0_deg, cfg)
+
+    step_fn = tt.make_train_step(cfg, HEIGHT, WIDTH)
+    kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+    for k in kernels:
+        k.launches = 0
+    train, log = train_steps(torch, step_fn, train, opt, views, gts, 0, SCATTER_STEPS)
+    train_launches = {k.__name__: k.launches for k in kernels}
+    losses = [float(m["loss"]) for m, _, _, _ in log]
+    print(f"  scatter steps: launches {train_launches}; losses "
+          f"{[round(x, 5) for x in losses]}; psnr {[round(float(m['psnr']), 3) for m, *_ in log]}",
+          flush=True)
+    check_steps(torch, log, "scatter")
+    if (train_launches["composite_fwd"] != SCATTER_STEPS
+            or train_launches["composite_bwd"] != SCATTER_STEPS):
+        raise AssertionError(f"expected {SCATTER_STEPS} K1 and K2 launches in "
+                             f"{SCATTER_STEPS} steps, counted {train_launches}")
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    accum = train.means_grad_accum[train.alive]
+    print(f"  accumulator: {int((accum > 0).sum())} of {int(train.alive.sum())} live slots > 0, "
+          f"max {float(accum.max()):.4e}", flush=True)
+    if not bool((accum > 0).any()):
+        raise AssertionError("the densify accumulator stayed zero")
+
+    # "mxu" vs "scatter" gradients from one state, then steps through K3.
+    mxu_cfg = dataclasses.replace(cfg, grad_reduce="mxu")
+    g_scatter = param_grads(torch, tt, train, views[0], gts[0], SCATTER_STEPS, cfg)
+    g_mxu = param_grads(torch, tt, train, views[0], gts[0], SCATTER_STEPS, mxu_cfg)
+    grad_err = {name: column_err(torch, g_mxu[name].reshape(-1, g.shape[-1]),
+                                 g.reshape(-1, g.shape[-1]))[1]
+                for name, g in g_scatter.items()}
+    print(f"  mxu vs scatter gradients, scaled error by field "
+          f"{ {k: float(f'{v:.3e}') for k, v in grad_err.items()} } (tol {BWD_TOL:g})",
+          flush=True)
+    if max(grad_err.values()) > BWD_TOL:
+        raise AssertionError("the mxu path's gradients differ from the scatter path's")
+    for k in kernels:
+        k.launches = 0
+    train, mxu_log = train_steps(torch, tt.make_train_step(mxu_cfg, HEIGHT, WIDTH), train, opt,
+                                 views, gts, SCATTER_STEPS, MXU_STEPS)
+    mxu_launches = {k.__name__: k.launches for k in kernels}
+    print(f"  mxu steps: launches {mxu_launches}; losses "
+          f"{[round(float(m['loss']), 5) for m, *_ in mxu_log]}", flush=True)
+    check_steps(torch, mxu_log, "mxu")
+    if mxu_launches["segsum"] != MXU_STEPS:
+        raise AssertionError(f"expected {MXU_STEPS} K3 launches, counted {mxu_launches}")
+
+    # K2 and K3 at step 0's shapes: against the plain versions, timed.
+    k2_err, k3_err, rows0 = compare_backward(torch, rc, ti0, out0, gout0, "train step 0")
+    bargs = (ti0.table, ti0.entry_rank, ti0.tile_starts, ti0.counts, ti0.sx, ti0.sy, out0,
+             gout0, ti0.tile_x)
+    k2_ms = timed_ms(torch, lambda: rc.composite_bwd(*bargs), 20)
+    k2_plain_ms = timed_ms(torch, lambda: rc.composite_bwd_plain(*bargs), 3)
+    live_t = torch.minimum(out0[:, 6].amax(dim=1).long(), ti0.counts.long())
+    k2_pairs = int(live_t.sum()) * 16 * ti0.tile_x
+    k2_in = nbytes(*bargs[:6], out0[:, 4:7], gout0[:, 0:5])
+    k2_bound, k2_by = kernel_bound(k2_in, nbytes(rows0), k2_pairs * FLOP_PER_PAIR)
+    n0 = ti0.table.shape[0] - 1
+    gs0, bounds0 = rc.segsum_inputs(rows0, ti0.entry_rank, n0)
+    k3_ms = timed_ms(torch, lambda: rc.segsum(gs0, bounds0), 20)
+    k3_plain_ms = timed_ms(torch, lambda: rc.segsum_plain(gs0, bounds0), 3)
+    ids0 = ti0.entry_rank.long()
+    ids0 = torch.where((ids0 < 0) | (ids0 >= n0), n0, ids0)
+    zero = torch.zeros((n0 + 1, rc.TABLE_COLS), device="cuda")
+    k3_lib_ms = timed_ms(torch, lambda: torch.index_add(zero, 0, ids0, rows0), 20)
+    summed = int(bounds0[-1] - bounds0[0])
+    k3_bound, k3_by = kernel_bound(summed * rc.TABLE_COLS * 4 + nbytes(bounds0),
+                                   n0 * rc.TABLE_COLS * 4, summed * rc.TABLE_COLS)
+    print(f"  K2 at step 0: median {k2_ms:.4f} ms over 20 launches; plain version "
+          f"{k2_plain_ms:.2f} ms; bound {k2_bound:.4f} ms by {k2_by} ({k2_pairs} pairs walked "
+          f"x {FLOP_PER_PAIR} FLOP; {k2_in + nbytes(rows0)} bytes; {ti0.tiles_x * ti0.tiles_y} "
+          f"tiles, live prefix max {int(live_t.max())} mean {float(live_t.float().mean()):.1f})",
+          flush=True)
+    print(f"  K3 at step 0: median {k3_ms:.4f} ms over 20 launches; plain version "
+          f"{k3_plain_ms:.2f} ms; index_add_ on the unsorted rows {k3_lib_ms:.4f} ms; bound "
+          f"{k3_bound:.4f} ms by {k3_by} ({summed} rows into {n0} splats, longest run "
+          f"{int((bounds0[1:] - bounds0[:-1]).max())})", flush=True)
+
+    # Where a step's time goes (layers timed alone, CUDA events, median of 5).
+    step_ms = statistics.median([ms for _, ms, _, _ in log[1:]])
+    host_ms = statistics.median([h for _, _, h, _ in log[1:]])
+    print(f"  step: median {step_ms:.3f} ms (CUDA events, steps 1-{SCATTER_STEPS - 1}), host "
+          f"median {host_ms:.3f} ms", flush=True)
+    train_layers(torch, rc, tt, train, opt, views[0], gts[0], cfg, step_ms)
+
     record = {"kernels": [{
         "name": "composite_fwd",
         "route": "cuda",
         "source": "tinysplat_torch/csrc/composite_fwd.cu",
         "replaces": "tinysplat_tpu/ops/rasterize_pallas.py:781",
-        "launches": launches,
+        "launches": train_launches["composite_fwd"],
         "max_abs_err": max_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "composite_bwd",
+        "route": "cuda",
+        "source": "tinysplat_torch/csrc/composite_bwd.cu",
+        "replaces": "tinysplat_tpu/ops/rasterize_pallas.py:900",
+        "launches": train_launches["composite_bwd"],
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
+        "library_ms": None,
+    }, {
+        "name": "segsum",
+        "route": "cuda",
+        "source": "tinysplat_torch/csrc/segsum.cu",
+        "replaces": "tinysplat_tpu/ops/rasterize_pallas.py:264",
+        "launches": mxu_launches["segsum"],
+        "max_abs_err": k3_err,
+        "ms": k3_ms,
+        "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound,
+        "bound_by": k3_by,
+        "library_ms": k3_lib_ms,
     }]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,206 @@
+"""Port compositing backward (K2's plain version through ``rasterize_cuda``
+on CPU tensors) and the gradient reductions vs the JAX package.
+
+Tolerances: gradients to 2e-4 x the field's max |gradient| against
+``jax.grad`` of the dense oracle and of the Pallas kernels (interpret mode,
+as test_rasterize_pallas.py runs them), 5e-4 x max in the heavy-occlusion
+case (the stop at T <= 1e-4 decides there); per-entry rows to 1e-4 x the
+column's max against the Pallas backward kernel (its log-space cumulative
+product rebuilds T to ~1e-6). The CUDA kernels themselves are held against
+the plain versions on the card (``chip_smoke.py`` and the JAX-free
+``test_torch_port_cuda.py``).
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tinysplat_tpu.ops import rasterize_pallas as rp
+from tinysplat_tpu.ops.rasterize_dense import rasterize_dense as jax_dense
+from tinysplat_tpu.ops.rasterize_pallas import rasterize_pallas
+
+from tinysplat_torch.ops import rasterize_cuda as rc
+
+from test_rasterize_tiled import random_case, to_jnp
+from test_torch_port_rasterize import _torch_args
+
+FIELDS = ("xys", "conics", "colors", "opac")
+
+
+def _target(H, W, seed=0):
+    return np.random.default_rng(seed).uniform(0, 1, (H, W, 4)).astype(np.float32)
+
+
+def _grad_case():
+    return random_case(n=80, H=32, W=48, seed=2)
+
+
+@functools.cache
+def _jax_grads(backend, grad_reduce="scatter"):
+    """jax.grad of mean((img - target)^2) w.r.t. (xys, conics, colors,
+    opacities) through the JAX dense oracle or Pallas kernels."""
+    xys, depths, radii, conics, colors, opac, valid, H, W, bg = to_jnp(_grad_case())
+    tgt = jnp.asarray(_target(H, W))
+
+    def loss(xys, conics, colors, opac):
+        if backend == "dense":
+            img, _ = jax_dense(xys, depths, conics, colors, opac, valid, H, W, bg)
+        else:
+            img, _ = rasterize_pallas(xys, depths, radii, conics, colors, opac, valid,
+                                      H, W, bg, chunk=16, grad_reduce=grad_reduce)
+        return jnp.mean((img - tgt) ** 2)
+
+    grads = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3)))(xys, conics, colors, opac)
+    return [np.asarray(g) for g in grads]
+
+
+def _port_grads(case, loss_fn, **kw):
+    xys, depths, radii, conics, colors, opac, valid, H, W, bg = _torch_args(case)
+    leaves = [x.clone().requires_grad_() for x in (xys, conics, colors, opac)]
+    img, _ = rc.rasterize_cuda(leaves[0], depths, radii, leaves[1], leaves[2], leaves[3],
+                               valid, H, W, bg, **kw)
+    loss_fn(img).backward()
+    return [x.grad.numpy() for x in leaves]
+
+
+def _assert_grads_close(got, ref, rel):
+    for g, r, name in zip(got, ref, FIELDS):
+        scale = max(float(np.abs(r).max()), 1e-8)
+        np.testing.assert_allclose(g, r, atol=rel * scale, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("grad_reduce", rc.GRAD_REDUCE)
+def test_plain_backward_matches_jax(grad_reduce):
+    case = _grad_case()
+    tgt = torch.from_numpy(_target(case[7], case[8]))
+    got = _port_grads(case, lambda img: torch.mean((img - tgt) ** 2), chunk=16,
+                      grad_reduce=grad_reduce)
+    _assert_grads_close(got, _jax_grads("dense"), 2e-4)
+    _assert_grads_close(got, _jax_grads("pallas", grad_reduce), 2e-4)
+
+
+def test_plain_backward_heavy_occlusion_matches_dense():
+    """Near-opaque stacks: T saturates and the sticky stop decides."""
+    n, H, W = 48, 16, 16
+    rng = np.random.default_rng(3)
+    case = (rng.uniform(2, 14, size=(n, 2)).astype(np.float32),
+            rng.uniform(0.5, 5.0, size=(n,)).astype(np.float32),
+            np.full(n, 14, np.int32),
+            np.tile(np.asarray([[0.15, 0.0, 0.15]], np.float32), (n, 1)),
+            rng.uniform(0, 1, size=(n, 4)).astype(np.float32),
+            rng.uniform(0.9, 1.0, size=(n,)).astype(np.float32),
+            np.ones(n, bool), H, W, np.asarray([0.3, 0.1, 0.2, 0.5], np.float32))
+    xys, depths, _, conics, colors, opac, valid, _, _, bg = to_jnp(case)
+
+    def loss(xys, conics, colors, opac):
+        img, _ = jax_dense(xys, depths, conics, colors, opac, valid, H, W, bg)
+        return jnp.sum(img ** 2)
+
+    ref = [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2, 3))(xys, conics, colors,
+                                                                       opac)]
+    got = _port_grads(case, lambda img: torch.sum(img ** 2), chunk=8, tile_x=16)
+    _assert_grads_close(got, ref, 5e-4)
+
+
+def test_composite_bwd_plain_matches_pallas_rows():
+    """Per-entry gradient rows vs the Pallas backward kernel's, for one
+    numpy-drawn cotangent of the compositing output."""
+    case = random_case(n=100, H=40, W=56, seed=0)
+    chunk, tile_x = 32, 16
+    xys, depths, radii, conics, colors, opac, valid, H, W, _ = to_jnp(case)
+    n = xys.shape[0]
+    tiles_x, tiles_y = -(-W // tile_x), -(-H // 16)
+    num_tiles = tiles_x * tiles_y
+    bins = rp.bin_splats_dense(xys, depths, radii, valid, tiles_x, tiles_y, 16, chunk=chunk,
+                               conics=conics, opacities=opac, tile_size_x=tile_x)
+    per_splat = jnp.concatenate(
+        [xys, conics, opac.reshape(-1, 1), colors, jnp.zeros((n, 6))], axis=1)
+    table = jnp.concatenate([per_splat[bins.order], jnp.zeros((1, 16))])
+    attr_rows = table[jnp.where(bins.entry_rank < 0, n, bins.entry_rank)]
+    tid = jnp.arange(num_tiles, dtype=jnp.int32)
+    sx, sy = (tid % tiles_x) * tile_x, (tid // tiles_x) * 16
+    tpb = min(8, num_tiles)
+    fns = rp._cached_pallas_fns(num_tiles, bins.entry_rank.shape[0], chunk, tpb, tile_x)
+    out_j, vjp = jax.vjp(lambda rows: fns(rows, bins.tile_starts, bins.counts, sx, sy),
+                         attr_rows)
+    gout = np.zeros(out_j.shape, np.float32)
+    gout[:num_tiles, 0:5] = np.random.default_rng(9).normal(
+        size=(num_tiles, 5, 16 * tile_x)).astype(np.float32)
+    (ref,) = vjp(jnp.asarray(gout))
+    ref = np.asarray(ref)[:, :rc.TABLE_COLS]
+
+    ti = rc.tile_inputs(*_torch_args(case)[:9], chunk=chunk, tile_x=tile_x)
+    args = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy)
+    out = rc.composite_fwd(*args, tile_x)
+    got = rc.composite_bwd(*args, out, torch.from_numpy(gout[:num_tiles]), tile_x).numpy()
+    assert got.shape == ref.shape
+    live = np.abs(ref).max(axis=1) > 0
+    assert live.sum() > 100  # the case has a live prefix to compare
+    scale = np.maximum(np.abs(ref).max(axis=0), 1e-8)
+    ratio = np.abs(got - ref) / scale
+    assert ratio.max() <= 1e-4, ratio.max(axis=0)
+
+
+def _random_rows(d=400, n=60, seed=0):
+    rng = np.random.default_rng(seed)
+    ranks = rng.integers(-1, n, size=d).astype(np.int32)  # -1 = pad slot
+    ranks[rng.uniform(size=d) < 0.1] = n + 3  # out of range: also goes nowhere
+    rows = rng.normal(size=(d, rc.TABLE_COLS)).astype(np.float32)
+    ref = np.zeros((n, rc.TABLE_COLS), np.float64)
+    ok = (ranks >= 0) & (ranks < n)
+    np.add.at(ref, ranks[ok], rows[ok].astype(np.float64))
+    return torch.from_numpy(rows), torch.from_numpy(ranks), ref
+
+
+@pytest.mark.parametrize("grad_reduce", rc.GRAD_REDUCE)
+def test_reduce_entry_grads_sums_each_splat(grad_reduce):
+    rows, ranks, ref = _random_rows()
+    got = rc.reduce_entry_grads(rows, ranks, ref.shape[0], grad_reduce)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+
+
+def test_segsum_plain_sums_runs_in_order():
+    rows, _, _ = _random_rows(d=50)
+
+    def in_order(lo, hi):  # the kernel's order: one row at a time
+        acc = torch.zeros(rc.TABLE_COLS)
+        for r in rows[lo:hi]:
+            acc = acc + r
+        return acc
+
+    before = rc.segsum.launches
+    bounds = torch.tensor([0, 0, 3, 3, 10, 49, 50, 50], dtype=torch.int32)
+    got = rc.segsum(rows, bounds)
+    assert rc.segsum.launches == before  # CPU tensors never reach the kernel
+    for i in range(bounds.shape[0] - 1):
+        assert torch.equal(got[i], in_order(int(bounds[i]), int(bounds[i + 1]))), i
+    # Bounds past the rows are clamped, never read out of range.
+    clamped = rc.segsum(rows, torch.tensor([45, 60, 80], dtype=torch.int32))
+    assert torch.equal(clamped[0], in_order(45, 50))
+    assert (clamped[1] == 0).all()
+
+
+def test_backward_argument_checks():
+    case = random_case(n=20, H=16, W=16, seed=1)
+    ti = rc.tile_inputs(*_torch_args(case)[:9])
+    args = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy)
+    out = rc.composite_fwd(*args, ti.tile_x)
+    with pytest.raises(ValueError, match="gout"):
+        rc.composite_bwd(*args, out, out[:, :5], ti.tile_x)
+    with pytest.raises(ValueError, match="out"):
+        rc.composite_bwd(*args, out.double(), out, ti.tile_x)
+    with pytest.raises(TypeError):
+        rc.composite_bwd(ti.table, ti.entry_rank.long(), *args[2:], out, out, ti.tile_x)
+    rows = torch.zeros((8, rc.TABLE_COLS))
+    with pytest.raises(TypeError):
+        rc.segsum(rows.double(), torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        rc.segsum(rows, torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(ValueError, match="grad_reduce"):
+        rc.reduce_entry_grads(rows, torch.zeros(8, dtype=torch.int32), 4, "atomic")
+    with pytest.raises(ValueError, match="grad_reduce"):
+        rc.rasterize_cuda(*_torch_args(case), grad_reduce="atomic")

@@ -2,10 +2,13 @@
 
 Same field names and defaults as the JAX package's dataclass, so a config
 written for one package reads the same in the other. Fields that only the
-JAX package's TPU path reads (``tiles_per_block``, ``grad_reduce``, the mesh
-and multi-host fields) are kept for that parity; the port's render path
-reads ``rasterizer``, ``tile_size``, ``tile_x``, the binning budgets,
-``antialiased`` and ``viewdirs_mode``.
+JAX package's TPU path reads (``tiles_per_block``, the mesh and multi-host
+fields) are kept for that parity; the port's render path reads
+``rasterizer``, ``tile_size``, ``tile_x``, the binning budgets,
+``antialiased`` and ``viewdirs_mode``, and its train step
+(``train.make_train_step``) the learning rates, loss weights, regularizer
+windows, ``grad_reduce``, ``sh_degree`` / ``sh_increment_interval``,
+``warmup_grad`` and ``background``.
 """
 from __future__ import annotations
 

@@ -32,25 +32,14 @@
 // its pixel, in registers, with no per-pair memory traffic. A thread stops
 // at its own saturation point; the block leaves the tile as soon as every
 // pixel is done (__syncthreads_count), so saturated tails cost no batches.
-// All arithmetic is float32, without fused multiply-adds (see mul_rn).
+// All arithmetic is float32, without fused multiply-adds; the alpha of an
+// (entry, pixel) pair comes from composite_common.cuh, which K2 shares.
 
-#include <cuda_runtime.h>
+#include "composite_common.cuh"
 
 namespace {
 
-constexpr int kTileH = 16;
-constexpr int kCols = 10;  // table row: x, y, conic a, b, c, opacity, c0..c3
-constexpr int kOutRows = 8;
-constexpr float kAlphaEps = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.999f;
-constexpr float kTEps = 1e-4f;
-
-// Every product and sum is rounded on its own (no fused multiply-add), in
-// the order the plain PyTorch version evaluates it, one elementwise op at a
-// time: the two then agree bit for bit, and a pixel cannot flip across the
-// 1/255 or 1e-4 thresholds between them.
-__device__ __forceinline__ float mul_rn(float x, float y) { return __fmul_rn(x, y); }
-__device__ __forceinline__ float add_rn(float x, float y) { return __fadd_rn(x, y); }
+using namespace tinysplat;
 
 __global__ void __launch_bounds__(1024)
 composite_fwd_kernel(const float* __restrict__ table, int sentinel,
@@ -81,9 +70,8 @@ composite_fwd_kernel(const float* __restrict__ table, int sentinel,
     const int e = base + tid;
     if (e < count) {
       // Out-of-range ids and slots read the zero sentinel (never a fault).
-      const long long slot = static_cast<long long>(start) + e;
-      const int r = (slot >= 0 && slot < n_entries) ? entry_rank[slot] : -1;
-      const int row = (r < 0 || r > sentinel) ? sentinel : r;
+      const int row = table_row(entry_rank, n_entries, static_cast<long long>(start) + e,
+                                sentinel);
       const float* src = table + static_cast<size_t>(row) * kCols;
 #pragma unroll
       for (int k = 0; k < kCols; ++k) batch[k * nthreads + tid] = src[k];
@@ -94,14 +82,11 @@ composite_fwd_kernel(const float* __restrict__ table, int sentinel,
     for (int j = 0; j < nb; ++j) {
       const float dx = px - batch[0 * nthreads + j];
       const float dy = py - batch[1 * nthreads + j];
-      const float a = batch[2 * nthreads + j];
-      const float b = batch[3 * nthreads + j];
-      const float c = batch[4 * nthreads + j];
-      // 0.5 (a dx dx + c dy dy) + b dx dy, rounded op by op (see mul_rn).
-      const float quad = add_rn(mul_rn(mul_rn(a, dx), dx), mul_rn(mul_rn(c, dy), dy));
-      const float sigma = add_rn(mul_rn(0.5f, quad), mul_rn(mul_rn(b, dx), dy));
-      const float alpha = fminf(kAlphaMax, mul_rn(batch[5 * nthreads + j], expf(-sigma)));
-      if (sigma >= 0.0f && alpha >= kAlphaEps) {
+      const EntryAlpha ea = entry_alpha(dx, dy, batch[2 * nthreads + j],
+                                        batch[3 * nthreads + j], batch[4 * nthreads + j],
+                                        batch[5 * nthreads + j]);
+      if (ea.keep) {
+        const float alpha = ea.alpha;
         const float next_T = mul_rn(T, 1.0f - alpha);
         if (next_T <= kTEps) {
           done = 1;
@@ -141,8 +126,8 @@ extern "C" int composite_fwd(const float* table, int n_rows, const int* entry_ra
                              const int* sx, const int* sy, int num_tiles,
                              int tile_x, float* out, void* stream) {
   if (num_tiles == 0) return static_cast<int>(cudaSuccess);
-  const int threads = kTileH * tile_x;
-  const size_t smem = static_cast<size_t>(kCols) * threads * sizeof(float);
+  const int threads = tinysplat::kTileH * tile_x;
+  const size_t smem = static_cast<size_t>(tinysplat::kCols) * threads * sizeof(float);
   composite_fwd_kernel<<<num_tiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       table, n_rows - 1, entry_rank, n_entries, tile_starts, counts, sx, sy, tile_x, out);
   return static_cast<int>(cudaGetLastError());

@@ -8,12 +8,13 @@ names, shapes and activations:
   (C, K-1, 3) higher SH bands;  opacities (C, 1) logits.
 
 Dead slots (``alive`` False) hold benign sentinels: identity quats, scales
-of -10 and opacity logits of -20.
+of -10 and opacity logits of -20. For training, ``requires_grad_`` makes the
+six tensors trainable leaves, which the optimizer updates in place.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +49,18 @@ class GaussianParams:
     def sh_coeffs(self) -> torch.Tensor:
         """(C, K, 3) concatenated SH coefficients (dc first)."""
         return torch.cat([self.colors_dc[:, None, :], self.colors_rest], dim=1)
+
+    def fields(self) -> List[Tuple[str, torch.Tensor]]:
+        """(name, tensor) of the six fields, in the JAX package's leaf order."""
+        return [(name, getattr(self, name)) for name in PARAM_FIELDS]
+
+    def requires_grad_(self, requires_grad: bool = True) -> "GaussianParams":
+        """Make the six tensors trainable leaves (in place); returns self."""
+        for name, t in self.fields():
+            if not t.is_leaf:
+                raise ValueError(f"{name} is not a leaf tensor and cannot be trained")
+            t.requires_grad_(requires_grad)
+        return self
 
 
 @dataclasses.dataclass

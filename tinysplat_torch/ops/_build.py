@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. On first use it is compiled
 by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/torch_kernels/`` at the repository root and loaded with ``ctypes``.
-The library's file name carries a hash of its source, so an edited source
-is rebuilt and a stale library is never loaded. Several sources build in
+The library's file name carries a hash of its source and of the shared
+headers (``csrc/*.cuh``), so an edited source is rebuilt and a stale
+library is never loaded. Several sources build in
 parallel: one ``nvcc`` process each, all started together.
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("composite_fwd",)
+KERNELS = ("composite_fwd", "composite_bwd", "segsum")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -40,7 +41,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

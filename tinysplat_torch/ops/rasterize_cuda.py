@@ -1,8 +1,7 @@
-"""Tile rasterizer: binning + the hand-written compositing kernel K1.
+"""Tile rasterizer: binning + the hand-written compositing kernels.
 
-Counterpart of ``tinysplat_tpu.ops.rasterize_pallas`` (forward only; the
-backward kernels come with the training path). ``rasterize_cuda`` has
-``rasterize_pallas``'s signature, outputs and diagnostics:
+Counterpart of ``tinysplat_tpu.ops.rasterize_pallas``. ``rasterize_cuda``
+has ``rasterize_pallas``'s signature, outputs, diagnostics and gradients:
 
 1. ``tile_inputs``: ``bin_splats_dense`` lays every tile's depth-sorted
    entries out contiguously (entry ids are depth RANKS); the per-splat
@@ -14,6 +13,22 @@ backward kernels come with the training path). ``rasterize_cuda`` has
    (num_tiles, 8, 16 * tile_x) f32 rows [c0..c3, T_final, n_contrib,
    last_contrib, 0], the JAX kernel's OUT_ROWS layout.
 3. ``untile``: background blend by T_final, tiles -> (H, W) image.
+
+The backward (``loss.backward()`` reaches it through ``composite_tiles``, a
+``torch.autograd.Function`` around K1):
+
+4. ``composite_bwd``: K2 (``csrc/composite_bwd.cu``) on CUDA tensors,
+   ``composite_bwd_plain`` on CPU tensors. Per-entry gradient rows
+   (len(entry_rank), 10) of the table columns, zero past each tile's live
+   prefix.
+5. ``reduce_entry_grads``: per-entry rows -> per-splat rows, by one of the
+   JAX package's four ``grad_reduce`` strategies; ``"mxu"`` sorts by id and
+   sums each splat's run with K3 (``csrc/segsum.cu``, ``segsum``).
+6. Autograd carries the table gradient back through the depth-order
+   permutation, projection, SH and the opacity sigmoid.
+
+Every kernel wrapper launches its kernel on CUDA tensors (counted in its
+``launches``) or raises; CPU tensors run the plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -30,7 +45,8 @@ from .rasterize_dense import ALPHA_EPS, ALPHA_MAX, T_EPS
 TILE = 16  # tile height in pixels
 OUT_ROWS = 8  # [c0..c3, T_final, n_contrib, last_contrib, 0]
 TABLE_COLS = 10  # [x, y, conic a, b, c, opacity, c0..c3]
-MAX_THREADS = 1024  # K1 runs one thread per pixel: 16 * tile_x <= 1024
+MAX_THREADS = 1024  # K1 and K2 run one thread per pixel: 16 * tile_x <= 1024
+GRAD_REDUCE = ("scatter", "sorted", "segment", "mxu")
 # The plain version walks blocks of tiles holding about this many pixels at
 # a time (so it fits in memory at any image size), and tests every this many
 # entries whether any pixel of the block is still live.
@@ -117,15 +133,9 @@ def composite_fwd(table, entry_rank, tile_starts, counts, sx, sy, tile_x: int) -
     args = [x.contiguous() for x in (table, entry_rank, tile_starts, counts, sx, sy)]
     num_tiles = tile_starts.shape[0]
     out = torch.empty((num_tiles, OUT_ROWS, p), dtype=torch.float32, device=table.device)
-    fn = _kernel()
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = fn(args[0].data_ptr(), args[0].shape[0], args[1].data_ptr(),
-                 args[1].shape[0], args[2].data_ptr(), args[3].data_ptr(),
-                 args[4].data_ptr(), args[5].data_ptr(), num_tiles, tile_x,
-                 out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error {err}")
+    _launch("composite_fwd", table.device, args[0].data_ptr(), args[0].shape[0],
+            args[1].data_ptr(), args[1].shape[0], args[2].data_ptr(), args[3].data_ptr(),
+            args[4].data_ptr(), args[5].data_ptr(), num_tiles, tile_x, out.data_ptr())
     composite_fwd.launches += 1
     return out
 
@@ -133,15 +143,33 @@ def composite_fwd(table, entry_rank, tile_starts, counts, sx, sy, tile_x: int) -
 composite_fwd.launches = 0
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The C signature of each kernel's entry point; the CUDA stream comes last.
+_SIGNATURES = {
+    "composite_fwd": [_P, _I, _P, _LL, _P, _P, _P, _P, _I, _I, _P, _P],
+    "composite_bwd": [_P, _I, _P, _LL, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "segsum": [_P, _I, _P, _I, _P, _P],
+}
+
+
 @functools.cache
-def _kernel():
-    """K1's C entry point with its ctypes signature (built on first use)."""
-    fn = _build.load("composite_fwd").composite_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+def _entry_point(name: str):
+    """Kernel ``name``'s C entry point with its ctypes signature (built on
+    first use)."""
+    fn = getattr(_build.load(name), name)
+    fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream; raises if the
+    launch was refused (the entry point returns cudaGetLastError())."""
+    fn = _entry_point(name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def composite_fwd_plain(table, entry_rank, tile_starts, counts, sx, sy,
@@ -205,6 +233,243 @@ def composite_fwd_plain(table, entry_rank, tile_starts, counts, sx, sy,
     return out
 
 
+def _check_bwd_args(table, entry_rank, tile_starts, counts, sx, sy, out, gout, tile_x):
+    _check_composite_args(table, entry_rank, tile_starts, counts, sx, sy, tile_x)
+    shape = (tile_starts.shape[0], OUT_ROWS, TILE * tile_x)
+    for name, x in (("out", out), ("gout", gout)):
+        if x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape}, got {x.dtype} {tuple(x.shape)}")
+        if x.device != table.device:
+            raise ValueError(f"{name} is on {x.device}, table on {table.device}")
+
+
+def composite_bwd(table, entry_rank, tile_starts, counts, sx, sy, out, gout,
+                  tile_x: int) -> torch.Tensor:
+    """Per-entry gradient rows (len(entry_rank), 10) of K1's table columns
+    [x, y, conic a, b, c, opacity, c0..c3], given K1's output ``out`` and
+    its cotangent ``gout`` (rows 0-4 are read: g_c0..g_c3, g_T_final).
+
+    Launches K2 on CUDA tensors (``composite_bwd.launches`` counts the
+    launches) and runs ``composite_bwd_plain`` on CPU tensors. Rows past
+    each tile's live prefix are zero.
+    """
+    _check_bwd_args(table, entry_rank, tile_starts, counts, sx, sy, out, gout, tile_x)
+    if table.device.type == "cpu":
+        return composite_bwd_plain(table, entry_rank, tile_starts, counts, sx, sy, out,
+                                   gout, tile_x)
+    if table.device.type != "cuda":
+        raise ValueError(f"composite_bwd runs on CUDA or CPU tensors, not {table.device}")
+    p = TILE * tile_x
+    if p > MAX_THREADS:
+        raise ValueError(f"K2 runs one thread per pixel: tile_x {tile_x} gives {p} "
+                         f"threads, more than {MAX_THREADS}")
+    args = [x.contiguous() for x in (table, entry_rank, tile_starts, counts, sx, sy, out, gout)]
+    num_tiles = tile_starts.shape[0]
+    grads = torch.zeros((entry_rank.shape[0], TABLE_COLS), dtype=torch.float32,
+                        device=table.device)
+    _launch("composite_bwd", table.device, args[0].data_ptr(), args[0].shape[0],
+            args[1].data_ptr(), args[1].shape[0], args[2].data_ptr(), args[3].data_ptr(),
+            args[4].data_ptr(), args[5].data_ptr(), num_tiles, tile_x, args[6].data_ptr(),
+            args[7].data_ptr(), grads.data_ptr())
+    composite_bwd.launches += 1
+    return grads
+
+
+composite_bwd.launches = 0
+
+
+def composite_bwd_plain(table, entry_rank, tile_starts, counts, sx, sy, out, gout,
+                        tile_x: int) -> torch.Tensor:
+    """K2 in plain PyTorch: the same back-to-front walk, vectorized over a
+    block of tiles x pixels instead of threads.
+
+    Step k handles entry k of every tile in the block whose live prefix
+    (the max of its pixels' last_contrib, at most its count) holds it. Per
+    pixel, every value is one elementwise op per rounding in K2's order, so
+    on the card the two differ only in the order of the pixel sums.
+    """
+    dev = table.device
+    num_tiles = tile_starts.shape[0]
+    p = TILE * tile_x
+    n_slots = entry_rank.shape[0]
+    grads = torch.zeros((n_slots, TABLE_COLS), dtype=torch.float32, device=dev)
+    if num_tiles == 0 or n_slots == 0:
+        return grads
+    sentinel = table.shape[0] - 1
+    pix = torch.arange(p, device=dev)
+    lx, ly = pix % tile_x, pix // tile_x
+    block = max(1, _PLAIN_BLOCK_ELEMS // p)
+    for t0 in range(0, num_tiles, block):
+        t1 = min(t0 + block, num_tiles)
+        start = tile_starts[t0:t1].long()
+        px = (sx[t0:t1, None] + lx).to(torch.float32)  # (B, P)
+        py = (sy[t0:t1, None] + ly).to(torch.float32)
+        T = out[t0:t1, 4].clone()
+        n_contrib = out[t0:t1, 5].long()
+        live = torch.minimum(out[t0:t1, 6].amax(dim=1).long(), counts[t0:t1].long())
+        g = gout[t0:t1, 0:4]  # (B, 4, P)
+        S = gout[t0:t1, 4] * T
+        for k in range(int(live.max()) - 1, -1, -1):
+            ok = k < live  # (B,)
+            slot = torch.clamp(start + k, 0, n_slots - 1)
+            r = torch.where(ok, entry_rank[slot].long(), -1)
+            r = torch.where((r < 0) | (r > sentinel), sentinel, r)
+            row = table[r]  # (B, TABLE_COLS)
+            dx = px - row[:, 0:1]
+            dy = py - row[:, 1:2]
+            a, b, c = row[:, 2:3], row[:, 3:4], row[:, 4:5]
+            sigma = 0.5 * (a * dx * dx + c * dy * dy) + b * dx * dy
+            raw = row[:, 5:6] * torch.exp(-sigma)
+            alpha = torch.clamp(raw, max=ALPHA_MAX)
+            kept = (k < n_contrib) & (sigma >= 0.0) & (alpha >= ALPHA_EPS)
+            om = 1.0 - alpha
+            t_before = T / om
+            w = alpha * t_before
+            q = (row[:, 6:7] * g[:, 0] + row[:, 7:8] * g[:, 1] + row[:, 8:9] * g[:, 2]
+                 + row[:, 9:10] * g[:, 3])
+            qw = q * w
+            dsig = torch.where(kept & (raw < ALPHA_MAX), alpha / om * S - qw, 0.0)
+            S = torch.where(kept, S + qw, S)
+            T = torch.where(kept, t_before, T)
+            wk = torch.where(kept, w, 0.0)
+            terms = torch.stack([
+                -(a * dx + b * dy) * dsig,
+                -(b * dx + c * dy) * dsig,
+                0.5 * dsig * dx * dx,
+                dsig * dx * dy,
+                0.5 * dsig * dy * dy,
+                dsig,
+                g[:, 0] * wk, g[:, 1] * wk, g[:, 2] * wk, g[:, 3] * wk,
+            ], dim=1)  # (B, TABLE_COLS, P)
+            sums = terms.sum(dim=2)
+            sums[:, 5] = -(sums[:, 5] / torch.clamp(row[:, 5], min=1e-30))
+            grads[slot[ok]] = sums[ok]
+    return grads
+
+
+def segsum(rows: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """Segment sums: out[i] = rows[bounds[i]:bounds[i + 1]].sum(0), for
+    (D, 10) float32 ``rows`` and (M + 1,) int32 nondecreasing ``bounds``
+    (clamped to [0, D]); returns (M, 10).
+
+    Launches K3 on CUDA tensors (``segsum.launches`` counts the launches)
+    and runs ``segsum_plain`` on CPU tensors.
+    """
+    if rows.dim() != 2 or rows.shape[1] != TABLE_COLS or rows.dtype != torch.float32:
+        raise TypeError(f"rows must be float32 (D, {TABLE_COLS}), got {rows.dtype} "
+                        f"{tuple(rows.shape)}")
+    if bounds.dtype != torch.int32 or bounds.dim() != 1 or bounds.shape[0] < 1:
+        raise TypeError(f"bounds must be a non-empty 1-D int32 tensor, got {bounds.dtype} "
+                        f"{tuple(bounds.shape)}")
+    if bounds.device != rows.device:
+        raise ValueError(f"bounds is on {bounds.device}, rows on {rows.device}")
+    if rows.device.type == "cpu":
+        return segsum_plain(rows, bounds)
+    if rows.device.type != "cuda":
+        raise ValueError(f"segsum runs on CUDA or CPU tensors, not {rows.device}")
+    rows, bounds = rows.contiguous(), bounds.contiguous()
+    m = bounds.shape[0] - 1
+    out = torch.empty((m, TABLE_COLS), dtype=torch.float32, device=rows.device)
+    _launch("segsum", rows.device, rows.data_ptr(), rows.shape[0], bounds.data_ptr(), m,
+            out.data_ptr())
+    segsum.launches += 1
+    return out
+
+
+segsum.launches = 0
+
+
+def segsum_plain(rows: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """K3 in plain PyTorch: every segment adds its rows in sorted order,
+    step k adding the k-th row of every segment still that long, so on the
+    card the two agree bit for bit."""
+    n_rows = rows.shape[0]
+    b = bounds.long().clamp(0, n_rows)
+    lo = b[:-1]
+    length = torch.maximum(b[1:], lo) - lo
+    acc = rows.new_zeros((lo.shape[0], TABLE_COLS))
+    if n_rows == 0 or lo.numel() == 0:
+        return acc
+    for k in range(int(length.max())):
+        ok = (k < length)[:, None]
+        acc = torch.where(ok, acc + rows[torch.clamp(lo + k, max=n_rows - 1)], acc)
+    return acc
+
+
+def reduce_entry_grads(rows: torch.Tensor, entry_rank: torch.Tensor, n: int,
+                       grad_reduce: str = "scatter") -> torch.Tensor:
+    """Per-entry gradient rows (D, 10) -> per-splat rows (n, 10): the sum of
+    the rows of every slot whose ``entry_rank`` is that splat's depth rank
+    (pad slots, rank -1, go nowhere).
+
+    ``grad_reduce`` keeps the JAX package's four names:
+      'scatter' — ``index_add_`` in slot order;
+      'sorted'  — a stable sort by rank, then ``index_add_`` in sorted order;
+      'segment' — the sort, a cumulative sum and boundary differences (the
+                  cumulative sum runs in float64: in float32 its rounding
+                  grows with the running total, not with the segment);
+      'mxu'     — the sort, a gather and the segment-sum kernel K3
+                  (``segsum``); the name is the JAX package's, whose kernel
+                  put the sums on the TPU's matrix unit.
+    """
+    if grad_reduce not in GRAD_REDUCE:
+        raise ValueError(f"grad_reduce must be one of {GRAD_REDUCE}, got {grad_reduce!r}")
+    if grad_reduce == "scatter":
+        return rows.new_zeros((n + 1, TABLE_COLS)).index_add_(0, _splat_ids(entry_rank, n),
+                                                              rows)[:n]
+    if grad_reduce == "sorted":
+        sorted_ids, perm = torch.sort(_splat_ids(entry_rank, n), stable=True)
+        return rows.new_zeros((n + 1, TABLE_COLS)).index_add_(0, sorted_ids, rows[perm])[:n]
+    gs, bounds = segsum_inputs(rows, entry_rank, n)
+    if grad_reduce == "segment":
+        csum = torch.cat([gs.new_zeros((1, TABLE_COLS), dtype=torch.float64),
+                          torch.cumsum(gs.double(), dim=0)])
+        b = bounds.long()
+        return (csum[b[1:]] - csum[b[:-1]]).float()
+    return segsum(gs, bounds)
+
+
+def _splat_ids(entry_rank: torch.Tensor, n: int) -> torch.Tensor:
+    """Entry ranks as int64 splat ids; pads and out-of-range ranks -> n."""
+    ids = entry_rank.long()
+    return torch.where((ids < 0) | (ids >= n), n, ids)
+
+
+def segsum_inputs(rows: torch.Tensor, entry_rank: torch.Tensor, n: int):
+    """K3's inputs: the rows in stable id-sorted order and the (n + 1,) int32
+    run bounds of splat ids 0..n-1 (the pads' run, id n, is left out)."""
+    sorted_ids, perm = torch.sort(_splat_ids(entry_rank, n), stable=True)
+    bounds = torch.searchsorted(sorted_ids, torch.arange(n + 1, device=rows.device))
+    return rows[perm], bounds.to(torch.int32)
+
+
+class _CompositeTiles(torch.autograd.Function):
+    """K1 forward; backward = K2, then the ``grad_reduce`` reduction to
+    per-splat rows of the table."""
+
+    @staticmethod
+    def forward(ctx, table, entry_rank, tile_starts, counts, sx, sy, tile_x, grad_reduce):
+        out = composite_fwd(table, entry_rank, tile_starts, counts, sx, sy, tile_x)
+        ctx.save_for_backward(table, entry_rank, tile_starts, counts, sx, sy, out)
+        ctx.tile_x, ctx.grad_reduce = tile_x, grad_reduce
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        table, entry_rank, tile_starts, counts, sx, sy, out = ctx.saved_tensors
+        rows = composite_bwd(table, entry_rank, tile_starts, counts, sx, sy, out,
+                             gout.contiguous(), ctx.tile_x)
+        n = table.shape[0] - 1
+        dtable = torch.cat([reduce_entry_grads(rows, entry_rank, n, ctx.grad_reduce),
+                            table.new_zeros((1, TABLE_COLS))])
+        return (dtable,) + (None,) * 7
+
+
+# composite_tiles(table, entry_rank, tile_starts, counts, sx, sy, tile_x,
+# grad_reduce): ``composite_fwd`` with a gradient for ``table``.
+composite_tiles = _CompositeTiles.apply
+
+
 def untile(out, background, tiles_x: int, tiles_y: int, tile_x: int,
            img_height: int, img_width: int):
     """K1 output -> (H, W, C) image blended over ``background`` (C,) by
@@ -249,10 +514,13 @@ def rasterize_cuda(
 
     ``tile_x`` sets the tile WIDTH (default ``tile_size``; height 16).
     ``chunk`` rounds the binning capacities and sizes the trailing pad, as
-    in the JAX layout. ``grad_reduce`` names the gradient reduction of the
-    training path and ``tiles_per_block`` a TPU grid-step setting: this
-    forward path reads neither.
+    in the JAX layout. ``grad_reduce`` selects the per-entry -> per-splat
+    gradient reduction of the backward (``reduce_entry_grads``).
+    ``tiles_per_block`` is a TPU grid-step setting that this path does not
+    read.
     """
+    if grad_reduce not in GRAD_REDUCE:
+        raise ValueError(f"grad_reduce must be one of {GRAD_REDUCE}, got {grad_reduce!r}")
     if tile_size != TILE:
         raise NotImplementedError(
             f"the tile grid is fixed at {TILE}px rows; got tile_size={tile_size}")
@@ -267,8 +535,8 @@ def rasterize_cuda(
                      img_height, img_width, chunk=chunk, dup_capacity=dup_capacity,
                      max_per_tile=max_per_tile, span_capacity=span_capacity,
                      tile_x=tile_x)
-    out = composite_fwd(ti.table, ti.entry_rank, ti.tile_starts, ti.counts,
-                        ti.sx, ti.sy, tile_x)
+    out = composite_tiles(ti.table, ti.entry_rank, ti.tile_starts, ti.counts,
+                          ti.sx, ti.sy, tile_x, grad_reduce)
     img, alpha = untile(out, background, ti.tiles_x, ti.tiles_y, tile_x,
                         img_height, img_width)
     if return_diagnostics:
