@@ -24,6 +24,23 @@ exits non-zero):
    loss falls), then 3 with ``"mxu"`` (K3 once per step; its gradients equal
    the scatter path's). K2 and K3 are held against their plain versions and
    timed at step 0's shapes, and the step is broken down into layers.
+7. The trainer at full width (``train_loop.Trainer``, ``"mxu"``): phase 6's
+   start and views, densify every 4 steps up to step 8, an opacity reset and
+   a checkpoint at step 8, the NaN guard every 4. tau_means is set so that
+   60% of the live splats pass it at the first densify; the first pass fills
+   the 524,288 slots partly, the second overflows them, grows capacity to
+   1,048,576 and is redone. 12 steps (K1, K2, K3 once each per step); K1,
+   K2 and K3 held against their plain versions at the last step's state,
+   camera and budgets (the grown capacity, tiles up to 8192 deep); then a
+   fresh trainer from the step-8 checkpoint replays steps 9-12 and must
+   equal the first run to 1e-5 x column max; 4 steps with pose_opt and
+   app_opt; evaluate() on a held-out orbit view; a 3-step torch.profiler
+   window (top ops, share of the window with a kernel running); the median
+   step time.
+8. The probes P1 (``probes.bitcast``) and P2 (``probes.op_costs``) through
+   their entry points: every P1 variant exact against the numpy ground
+   truth and equal to its plain version, every P2 row within its stated
+   tolerance of its plain version, with times and bounds.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -67,6 +84,16 @@ FLOP_PER_PAIR = 16
 # K2 vs its plain version, and the per-splat reductions: the masks are K1's
 # bit for bit, only the order of the pixel sums differs.
 BWD_TOL = 1e-5
+# Phase 7: 12 trainer steps, a densify every 4 (the camera count) up to step
+# 8. A resumed run equals the original to this share of each column's max:
+# "mxu" sums deterministically, but a few autograd reductions use atomics.
+TRAINER_STEPS, TRAINER_VIEWS_PER_DENSIFY = 12, TRAIN_VIEWS
+RESUME_TOL = 1e-5
+# Binning budgets for the densified scene (up to ~2.3x the bench scene's
+# splats and intersections), so that nothing is dropped; the trainer's
+# retune keeps them (it shrinks only below a quarter in use).
+TRAINER_KW = dict(tile_x=64, dup_capacity=2_000_000, span_capacity=2_000_000,
+                  max_per_tile=8192)
 
 
 def gpu_name_and_limit() -> str:
@@ -74,20 +101,6 @@ def gpu_name_and_limit() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def timed_ms(torch, fn, reps):
-    """Median of per-call CUDA-event times (ms) over ``reps`` calls."""
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def compare_kernel(torch, rc, args, label):
@@ -146,9 +159,11 @@ def synthetic_case(torch, rc, label, n, height, width, tile_x, seed, xy_lo=None,
 def where_the_time_goes(torch, frame_ms, layers):
     """Each layer of a frame timed on its own (CUDA events, median of 5),
     beside the frame: what the layers leave over is host time between them."""
+    from tinysplat_torch.probes import timed_ms
+
     total = 0.0
     for name, fn in layers.items():
-        ms = timed_ms(torch, fn, 5)
+        ms = timed_ms(fn, 5)
         total += ms
         print(f"  layer {name}: {ms:.3f} ms", flush=True)
     print(f"  layers sum {total:.3f} ms of a {frame_ms:.3f} ms frame", flush=True)
@@ -221,7 +236,7 @@ def nbytes(*tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
-def step_zero_backward_inputs(torch, rc, train, cam, gt, deg, cfg):
+def backward_inputs(torch, rc, train, cam, gt, deg, cfg, budgets=RENDER_KW):
     """K1's inputs and output at a training state, and the training loss's
     own cotangent of K1's output (what K2 receives in that step)."""
     from tinysplat_torch.ops.ssim import ssim
@@ -231,7 +246,7 @@ def step_zero_backward_inputs(torch, rc, train, cam, gt, deg, cfg):
     with torch.no_grad():
         s = splat_inputs(train.params, train.alive, cam, HEIGHT, WIDTH, deg, bg)
         ti = rc.tile_inputs(s.xys, s.proj.depths, s.proj.radii, s.proj.conics, s.colors4,
-                            s.opacities, s.valid, HEIGHT, WIDTH, **RENDER_KW)
+                            s.opacities, s.valid, HEIGHT, WIDTH, **budgets)
         out = rc.composite_fwd(ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx,
                                ti.sy, ti.tile_x)
     out_g = out.clone().requires_grad_()
@@ -292,6 +307,7 @@ def train_layers(torch, rc, tt, state, opt, cam, gt, cfg, step_ms):
     autograd through the permutation, projection, SH and the loss), then
     Adam. Runs Adam 5 more times on the state."""
     from tinysplat_torch.ops.ssim import ssim
+    from tinysplat_torch.probes import timed_ms
     from tinysplat_torch.render import splat_inputs
 
     bg = torch.zeros(3, device="cuda")
@@ -332,7 +348,7 @@ def train_layers(torch, rc, tt, state, opt, cam, gt, cfg, step_ms):
         f"backward: reduction ({cfg.grad_reduce})": lambda: rc.reduce_entry_grads(
             rows, ti.entry_rank, n, cfg.grad_reduce),
     }
-    times = {name: timed_ms(torch, fn, 5) for name, fn in layers.items()}
+    times = {name: timed_ms(fn, 5) for name, fn in layers.items()}
     backward = []
     for _ in range(5):
         loss = loss_of(forward()[3])
@@ -348,7 +364,7 @@ def train_layers(torch, rc, tt, state, opt, cam, gt, cfg, step_ms):
     times["backward: the rest of autograd (all - K2 - reduction)"] = (
         times["backward, all"] - times["backward: composite_bwd (K2)"]
         - times[f"backward: reduction ({cfg.grad_reduce})"])
-    times["Adam step"] = timed_ms(torch, opt.step, 5)
+    times["Adam step"] = timed_ms(opt.step, 5)
     for name, ms in times.items():
         print(f"  layer {name}: {ms:.3f} ms", flush=True)
     total = sum(ms for name, ms in times.items()
@@ -376,6 +392,218 @@ def write_bench_checkpoint(path, seed=0):
     })
 
 
+def calibrated_tau(torch, tt, state, views, gts, cfg, passing=0.6):
+    """The tau_means that ``passing`` of the live splats pass at a densify
+    after one step per view, estimated from the start state's screen-space
+    gradients at every view (grad_avg = sum / steps / 2 * max(W, H))."""
+    start = dataclasses.replace(state, active_sh_degree=torch.tensor(
+        1, dtype=torch.int32, device="cuda"))
+    accum = torch.zeros(state.capacity, device="cuda")
+    for i, (cam, gt) in enumerate(zip(views, gts)):
+        accum += torch.linalg.norm(param_grads(torch, tt, start, cam, gt, i + 1, cfg)["xys"],
+                                   dim=-1)
+    grad_avg = accum / len(views) / 2.0 * max(WIDTH, HEIGHT)
+    return float(torch.quantile(grad_avg[state.alive], 1.0 - passing))
+
+
+def trainer_phase(torch, rc, tt, Config, views, gts, serve_state, deg, bg):
+    """Phase 7: ``Trainer`` at full width; see the module docstring."""
+    from tinysplat_torch.data.synthetic import orbit_cameras
+    from tinysplat_torch.io.checkpoint import load_checkpoint, load_model, save_checkpoint
+    from tinysplat_torch.render import render
+    from tinysplat_torch.scene import Scene
+    from tinysplat_torch.train_loop import Trainer
+
+    cams = orbit_cameras(TRAIN_VIEWS, width=WIDTH, height=HEIGHT)
+    for cam, gt in zip(cams, gts):
+        cam._image = gt.cpu().numpy()
+    scene = Scene(cams)
+    held_out = orbit_cameras(2 * TRAIN_VIEWS, width=WIDTH, height=HEIGHT)[1]
+    with torch.no_grad():  # between training views 0 and 1
+        held_out._image = render(serve_state.params, serve_state.alive,
+                                 held_out.params("cuda"), HEIGHT, WIDTH, deg, bg,
+                                 **RENDER_KW)[0].cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "bench_scene.npz")
+        write_bench_checkpoint(ckpt)
+        start = load_model(ckpt, device="cuda")
+        noise = np.random.default_rng(7).normal(0.0, 0.1, size=tuple(start.params.colors_dc.shape))
+        with torch.no_grad():  # phase 6's start: dimmed opacities, perturbed colours
+            live = start.alive[:, None]
+            start.params.opacities[:] = torch.where(live, -1.0, start.params.opacities)
+            start.params.colors_dc += torch.where(
+                live, torch.as_tensor(noise, dtype=torch.float32, device="cuda"), 0.0)
+        base = Config(background="black", warmup_grad=0, grad_reduce="mxu", **TRAINER_KW)
+        tt.init_opt_state(base, start)
+        tau = calibrated_tau(torch, tt, start, views, gts, base)
+        cfg = dataclasses.replace(
+            base, tau_means=tau, warmup_densify=TRAINER_VIEWS_PER_DENSIFY,
+            densify_end=2 * TRAINER_VIEWS_PER_DENSIFY, interval_opacity_reset=8,
+            nan_guard_interval=4, save_checkpoints=True, checkpoint_interval=8,
+            checkpoint_dir=os.path.join(tmp, "ckpt"), max_iter=TRAINER_STEPS)
+        print(f"phase 7: Trainer, {TRAINER_STEPS} steps, {N_SPLATS} splats in "
+              f"{start.capacity} slots, {HEIGHT}x{WIDTH}, {TRAIN_VIEWS} views, grad_reduce "
+              f"mxu; tau_means {tau:.4e} (60% of the live splats pass it at the start)",
+              flush=True)
+        tr = Trainer(cfg, scene, start)
+        kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+        for k in kernels:
+            k.launches = 0
+        step_s, losses, drops = [], [], []
+        for s in range(1, TRAINER_STEPS + 1):
+            t0 = time.perf_counter()
+            tr.run(s)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if s == cfg.checkpoint_interval:  # the budgets the checkpoint was taken with
+                cfg_at_ckpt = tr.cfg
+            m = tr.last_metrics
+            losses.append(float(m["loss"]))
+            drops.append((int(m["n_dup_dropped"]), int(m["n_tile_dropped"])))
+        launches = {k.__name__: k.launches for k in kernels}
+        print(f"  launches in the {TRAINER_STEPS} steps: {launches}; losses "
+              f"{[round(x, 5) for x in losses]}; entries dropped by binning (total, tile) "
+              f"{drops}; host s per step {[round(x, 3) for x in step_s]}", flush=True)
+        if any(n != TRAINER_STEPS for n in launches.values()):
+            raise AssertionError(f"expected {TRAINER_STEPS} K1, K2 and K3 launches, counted "
+                                 f"{launches}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite trainer losses {losses}")
+        for h in tr.densify_history:
+            print(f"  densify at step {h['step']}: cloned {h['cloned']} split {h['split']} "
+                  f"pruned {h['pruned']} dropped {h['dropped']} live {h['num_live']}; capacity "
+                  f"{h['capacity_before']} -> {h['capacity_after']} (overflow {h['overflow']}); "
+                  f"{h['seconds']:.3f} s", flush=True)
+        grown = [h for h in tr.densify_history if h["overflow"] > 0]
+        if not grown or tr.state.capacity != 2 * N_SPLATS * 2:
+            raise AssertionError(f"no densify overflow grew capacity to {4 * N_SPLATS}: "
+                                 f"{tr.densify_history}")
+        if not all(torch.isfinite(t).all() for _, t in tr.state.params.fields()):
+            raise AssertionError("the trainer's parameters are not finite")
+        print(f"  retuned budgets: dup_capacity {tr.cfg.dup_capacity}, max_per_tile "
+              f"{tr.cfg.max_per_tile}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+        # K1, K2 and K3 against their plain versions at the trainer's own
+        # shapes: the state, camera, GT and budgets of the last step.
+        camera = scene.get_random_camera(tr.step - 1)
+        budgets = {k: getattr(tr.cfg, k) for k in TRAINER_KW}
+        ti, out, gout = backward_inputs(
+            torch, rc, tr.state, camera.params("cuda"), tr._device_image(camera, WIDTH, HEIGHT),
+            int(tr.state.active_sh_degree), tr.cfg, budgets)
+        label = f"trainer step {tr.step}, {int(tr.state.num_live())} live in {tr.state.capacity}"
+        compare_kernel(torch, rc, (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx,
+                                   ti.sy, ti.tile_x), label)
+        compare_backward(torch, rc, ti, out, gout, label)
+
+        # Resume: a fresh trainer from the step-8 checkpoint replays 9-12.
+        (path,) = [os.path.join(cfg.checkpoint_dir, f) for f in os.listdir(cfg.checkpoint_dir)]
+        t0 = time.perf_counter()
+        st, opt, step, rng = load_checkpoint(path, cfg_at_ckpt, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        resumed = Trainer(dataclasses.replace(cfg_at_ckpt, save_checkpoints=False), scene, st,
+                          opt, step, rng)
+        resumed.run(TRAINER_STEPS)
+        pairs = [(name, t, getattr(resumed.state.params, name))
+                 for name, t in tr.state.params.fields()]
+        pairs.append(("means_grad_accum", tr.state.means_grad_accum,
+                      resumed.state.means_grad_accum))
+        errs = {name: column_err(torch, b.detach().reshape(b.shape[0], -1),
+                                 a.detach().reshape(a.shape[0], -1))[1]
+                for name, a, b in pairs}
+        same_alive = bool(torch.equal(tr.state.alive, resumed.state.alive))
+        print(f"  checkpoint {os.path.getsize(path) / 2**20:.1f} MiB at step {step} "
+              f"(capacity {st.capacity}), loaded in {load_s:.3f} s; replayed steps 9-"
+              f"{TRAINER_STEPS}: alive equal {same_alive}, scaled error by field "
+              f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (tol {RESUME_TOL:g})",
+              flush=True)
+        if not same_alive or max(errs.values()) > RESUME_TOL:
+            raise AssertionError("the resumed run differs from the original")
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(tmp, "timed.npz"), tr.state, tr.opt_state, tr.step,
+                        tr.generator.get_state())
+        print(f"  save_checkpoint at step {tr.step} (capacity {tr.state.capacity}): "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    # pose_opt + app_opt: 4 steps from the first run's state.
+    pose_cfg = dataclasses.replace(tr.cfg, pose_opt=True, app_opt=True, save_checkpoints=False)
+    posed = Trainer(pose_cfg, scene, tr.state, tr.opt_state, tr.step)
+    grads = []
+    for _ in range(4):
+        posed.train_step()
+        g = posed.last_metrics
+        grads.append((float(g["pose_grad"].abs().max()), float(g["app_grad"].abs().max()),
+                      bool(torch.isfinite(g["pose_grad"]).all() and
+                           torch.isfinite(g["app_grad"]).all())))
+    moved = (float(posed.pose_deltas.abs().sum()), float(posed.app_params.abs().sum()))
+    print(f"  pose_opt + app_opt, 4 steps: max |pose_grad|, |app_grad|, finite per step "
+          f"{grads}; sum |pose deltas| {moved[0]:.4e}, sum |app params| {moved[1]:.4e}",
+          flush=True)
+    if not all(p > 0 and a > 0 and ok for p, a, ok in grads) or min(moved) <= 0:
+        raise AssertionError("pose / appearance gradients did not reach their tables")
+
+    posed.eval_cameras = [held_out]
+    ev = posed.evaluate()
+    print(f"  evaluate() on a held-out orbit view: {ev}", flush=True)
+    if not (np.isfinite(ev["eval_psnr"]) and 0.0 <= ev["eval_ssim"] <= 1.0):
+        raise AssertionError(f"bad held-out evaluation {ev}")
+
+    # A 3-step profile window, then the median step time (the resumed trainer).
+    resumed.cfg = dataclasses.replace(resumed.cfg, profile_steps=3,
+                                      profile_start=resumed.step)
+    with tempfile.TemporaryDirectory() as tmp:
+        resumed.cfg = dataclasses.replace(resumed.cfg, profile_dir=tmp)
+        resumed.run(resumed.step + 4)
+    if resumed.profile_summary is None:
+        raise AssertionError("the profile window did not close")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed.train_step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"  Trainer step: median {statistics.median(times):.3f} ms over 5 steps "
+          f"({[round(t, 3) for t in times]}), {int(resumed.state.num_live())} live splats in "
+          f"{resumed.state.capacity} slots", flush=True)
+
+
+def probes_phase(torch):
+    """Phase 8: P1 and P2 through their entry points; their JSON entries."""
+    from tinysplat_torch.probes import bitcast, op_costs
+
+    print("phase 8: probes P1 (bitcast) and P2 (op_costs)", flush=True)
+    bitcast.probe_bitcast.launches = 0
+    r1 = bitcast.run("cuda")
+    l1 = bitcast.probe_bitcast.launches
+    op_costs.probe_op_costs.launches = 0
+    r2 = op_costs.run("cuda")
+    l2 = op_costs.probe_op_costs.launches
+    print(f"  launches: P1 {l1}, P2 {l2}", flush=True)
+    if set(r1) != set(bitcast.VARIANTS) or set(r2) != set(op_costs.OPS):
+        raise AssertionError("a probe variant or row gave no result")
+    bad1 = [v for v, r in r1.items()
+            if not (r["exact"] and r["equal_plain"] and r["table_equal_plain"])]
+    bad2 = [op for op, r in r2.items() if not r["ok"]]
+    if bad1 or bad2:
+        raise AssertionError(f"probe mismatches: P1 {bad1}, P2 {bad2}")
+    a, wide = r1["A"], max(k for k in r2["fma"] if isinstance(k, int))
+    fma = r2["fma"][wide]
+    return ({"name": "probe_bitcast", "route": "cuda",
+             "source": "tinysplat_torch/csrc/probe_bitcast.cu",
+             "replaces": "scripts/probe_bf16_bitcast.py:46", "launches": l1,
+             "max_abs_err": max(r["max_abs_err"] for r in r1.values()), "ms": a["ms"],
+             "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"], "bound_by": "bytes",
+             "library_ms": a["library_ms"]},
+            {"name": "probe_op_costs", "route": "cuda",
+             "source": "tinysplat_torch/csrc/probe_op_costs.cu",
+             "replaces": "scripts/probe_vpu_costs.py:28", "launches": l2,
+             "max_abs_err": max(r["max_abs_err"] for r in r2.values()), "ms": fma["ms"],
+             "plain_ms": fma["plain_ms"], "bound_ms": fma["bound_ms"],
+             "bound_by": "operations", "library_ms": None})
+
+
 def main() -> int:
     import torch
 
@@ -388,6 +616,7 @@ def main() -> int:
     from tinysplat_torch.io.checkpoint import load_model
     from tinysplat_torch.ops import _build
     from tinysplat_torch.ops import rasterize_cuda as rc
+    from tinysplat_torch.probes import timed_ms
     from tinysplat_torch.render import render, splat_inputs
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -509,8 +738,8 @@ def main() -> int:
     if frame_err > KERNEL_TOL:
         raise AssertionError("the served frame disagrees with the plain version")
 
-    k1_ms = timed_ms(torch, lambda: rc.composite_fwd(*args), 20)
-    plain_ms = timed_ms(torch, lambda: rc.composite_fwd_plain(*args), 3)
+    k1_ms = timed_ms(lambda: rc.composite_fwd(*args), 20, device_only=True)
+    plain_ms = timed_ms(lambda: rc.composite_fwd_plain(*args), 3, device_only=True)
     pairs = int(torch.minimum(out[:, 5] + 1, ti.counts[:, None].float()).sum())
     tile_pairs = int(ti.counts.long().sum()) * 16 * ti.tile_x
     in_bytes = sum(x.numel() * x.element_size() for x in args[:6])
@@ -529,7 +758,7 @@ def main() -> int:
           f"(bytes {in_bytes + out_bytes} -> {bytes_ms:.4f} ms, {pairs} pairs walked x "
           f"{FLOP_PER_PAIR} FLOP -> {ops_ms:.4f} ms; all entries x pixels {tile_pairs})",
           flush=True)
-    binning_ms = timed_ms(torch, lambda: rc.bin_splats_dense(
+    binning_ms = timed_ms(lambda: rc.bin_splats_dense(
         s.xys, s.proj.depths, s.proj.radii, s.valid, ti.tiles_x, ti.tiles_y,
         conics=s.proj.conics, opacities=s.opacities, tile_size_x=ti.tile_x,
         **{k: v for k, v in RENDER_KW.items() if k != "tile_x"}), 5)
@@ -577,8 +806,7 @@ def main() -> int:
     cfg = Config(background="black", warmup_grad=0, grad_reduce="scatter", **RENDER_KW)
     opt = tt.init_opt_state(cfg, train)
     step0_deg = min(cfg.sh_degree, 1)
-    ti0, out0, gout0 = step_zero_backward_inputs(torch, rc, train, views[0], gts[0],
-                                                 step0_deg, cfg)
+    ti0, out0, gout0 = backward_inputs(torch, rc, train, views[0], gts[0], step0_deg, cfg)
 
     step_fn = tt.make_train_step(cfg, HEIGHT, WIDTH)
     kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
@@ -630,20 +858,20 @@ def main() -> int:
     k2_err, k3_err, rows0 = compare_backward(torch, rc, ti0, out0, gout0, "train step 0")
     bargs = (ti0.table, ti0.entry_rank, ti0.tile_starts, ti0.counts, ti0.sx, ti0.sy, out0,
              gout0, ti0.tile_x)
-    k2_ms = timed_ms(torch, lambda: rc.composite_bwd(*bargs), 20)
-    k2_plain_ms = timed_ms(torch, lambda: rc.composite_bwd_plain(*bargs), 3)
+    k2_ms = timed_ms(lambda: rc.composite_bwd(*bargs), 20, device_only=True)
+    k2_plain_ms = timed_ms(lambda: rc.composite_bwd_plain(*bargs), 3, device_only=True)
     live_t = torch.minimum(out0[:, 6].amax(dim=1).long(), ti0.counts.long())
     k2_pairs = int(live_t.sum()) * 16 * ti0.tile_x
     k2_in = nbytes(*bargs[:6], out0[:, 4:7], gout0[:, 0:5])
     k2_bound, k2_by = kernel_bound(k2_in, nbytes(rows0), k2_pairs * FLOP_PER_PAIR)
     n0 = ti0.table.shape[0] - 1
     gs0, bounds0 = rc.segsum_inputs(rows0, ti0.entry_rank, n0)
-    k3_ms = timed_ms(torch, lambda: rc.segsum(gs0, bounds0), 20)
-    k3_plain_ms = timed_ms(torch, lambda: rc.segsum_plain(gs0, bounds0), 3)
+    k3_ms = timed_ms(lambda: rc.segsum(gs0, bounds0), 20, device_only=True)
+    k3_plain_ms = timed_ms(lambda: rc.segsum_plain(gs0, bounds0), 3, device_only=True)
     ids0 = ti0.entry_rank.long()
     ids0 = torch.where((ids0 < 0) | (ids0 >= n0), n0, ids0)
     zero = torch.zeros((n0 + 1, rc.TABLE_COLS), device="cuda")
-    k3_lib_ms = timed_ms(torch, lambda: torch.index_add(zero, 0, ids0, rows0), 20)
+    k3_lib_ms = timed_ms(lambda: torch.index_add(zero, 0, ids0, rows0), 20, device_only=True)
     summed = int(bounds0[-1] - bounds0[0])
     k3_bound, k3_by = kernel_bound(summed * rc.TABLE_COLS * 4 + nbytes(bounds0),
                                    n0 * rc.TABLE_COLS * 4, summed * rc.TABLE_COLS)
@@ -663,6 +891,12 @@ def main() -> int:
     print(f"  step: median {step_ms:.3f} ms (CUDA events, steps 1-{SCATTER_STEPS - 1}), host "
           f"median {host_ms:.3f} ms", flush=True)
     train_layers(torch, rc, tt, train, opt, views[0], gts[0], cfg, step_ms)
+
+    # -- 7. the trainer at full width ----------------------------------------------
+    trainer_phase(torch, rc, tt, Config, views, gts, state, deg, bg)
+
+    # -- 8. the probes P1 and P2 -------------------------------------------------------
+    p1, p2 = probes_phase(torch)
 
     record = {"kernels": [{
         "name": "composite_fwd",
@@ -700,7 +934,7 @@ def main() -> int:
         "bound_ms": k3_bound,
         "bound_by": k3_by,
         "library_ms": k3_lib_ms,
-    }]}
+    }, p1, p2]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,80 @@
+"""The port's train CLI (``python -m tinysplat_torch.train_cli``) vs
+``scripts/train.py``: flag parity with its ``arg_parser`` (loaded by path),
+a synthetic run on the CPU whose checkpoint the JAX package loads, resume
+from it, and the flags whose modules a later slice brings.
+"""
+import importlib.util
+import os
+
+import jax
+import numpy as np
+import pytest
+
+from tinysplat_tpu.config import Config as JaxConfig
+from tinysplat_tpu.io.checkpoint import load_checkpoint as jax_load_checkpoint
+
+from tinysplat_torch import train_cli
+from tinysplat_torch.io import checkpoint as tck
+
+from tests.test_torch_port_trainer import _two_torch_threads  # noqa: F401 (autouse)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax_parser():
+    spec = importlib.util.spec_from_file_location(
+        "jax_train_cli", os.path.join(REPO, "scripts", "train.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.arg_parser()
+
+
+def test_flag_parity_with_the_jax_cli():
+    jax_actions = {a.dest: a for a in _jax_parser()._actions if a.dest != "help"}
+    port_actions = {a.dest: a for a in train_cli.arg_parser()._actions if a.dest != "help"}
+    assert set(port_actions) == set(jax_actions)
+    for dest, ja in jax_actions.items():
+        pa = port_actions[dest]
+        assert pa.option_strings == ja.option_strings, dest
+        assert type(pa) is type(ja) and pa.type == ja.type, dest
+        if dest == "device":  # the port's entry points run on the card
+            assert (pa.default, ja.default) == ("cuda", "tpu")
+        else:
+            assert pa.default == ja.default, dest
+    args = train_cli.arg_parser().parse_args(
+        ["--max-iter", "123", "--regularize-depth", "--lr-means", "0.001", "--no-viewer"])
+    assert (args.max_iter, args.regularize_depth, args.lr_means, args.viewer) == (
+        123, True, 0.001, False)
+
+
+def test_synthetic_run_checkpoint_loads_in_jax_and_resumes(tmp_path):
+    ck = tmp_path / "ck"
+    common = ["--no-viewer", "--synthetic", "--device", "cpu", "--rasterizer", "dense",
+              "--capacity", "512",
+              "--save-checkpoints", "--checkpoint-dir", str(ck), "--checkpoint-interval", "10",
+              "--pose-opt", "--app-opt", "--eval-holdout", "5"]
+    tr = train_cli.main(["--train", "--max-iter", "20"] + common)
+    assert tr.step == 20 and len(tr.scene.cameras) == 8 and len(tr.eval_cameras) == 2
+    assert float(tr.pose_deltas.abs().sum()) > 0
+    path = sorted(ck.glob("*-20.npz"))[0]
+    state, opt, step, key = jax_load_checkpoint(str(path), JaxConfig())
+    assert step == 20 and key is None
+    for got, ref in zip(jax.tree.leaves(state), tck.state_leaves(tr.state)):
+        np.testing.assert_array_equal(np.asarray(got), ref)
+    for got, ref in zip(jax.tree.leaves(opt), tck.opt_leaves(tr.opt_state)):
+        np.testing.assert_array_equal(np.asarray(got), ref)
+    resumed = train_cli.main(["--train", "--max-iter", "22", "--load-checkpoint", str(path)]
+                             + common)
+    assert resumed.step == 22 and int(resumed._pose_cnt.sum()) == int(tr._pose_cnt.sum()) + 2
+    assert np.isfinite(resumed.evaluate()["eval_psnr"])
+
+
+@pytest.mark.parametrize("flags,slice_", [([], "slice D"),
+                                          (["--no-viewer"], "slice D"),
+                                          (["--no-viewer", "--synthetic", "--mesh-tile", "2"],
+                                           "item 16"),
+                                          (["--no-viewer", "--synthetic", "--distributed"],
+                                           "item 16")])
+def test_unported_flags_raise(flags, slice_):
+    with pytest.raises(NotImplementedError, match=slice_):
+        train_cli.main(flags + ["--device", "cpu"])

@@ -6,19 +6,26 @@ Every test is marked ``cuda`` and skips where torch sees no CUDA device.
 
 Tolerances: K2's per-entry rows to 1e-5 x the column's max |plain| (the
 masks are K1's bit for bit; only the order of the pixel sums differs); K3
-bit for bit (it adds each run in the plain version's order).
+bit for bit (it adds each run in the plain version's order). The probes:
+P1 bit for bit (it moves bits as integers); P2 per row, as
+``op_costs.TOLERANCE`` states with its reasons.
 """
 import numpy as np
 import pytest
 import torch
 
 from tinysplat_torch.ops import rasterize_cuda as rc
+from tinysplat_torch.probes import bitcast, op_costs
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU build")
 
 
 def _case(n, height, width, tile_x, seed):
     """Compositing inputs for n random screen-space splats on the card."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU build")
+    _need_card()
     rng = np.random.default_rng(seed)
     xys = rng.uniform((-6, -6), (width + 6, height + 6), size=(n, 2))
     L = rng.normal(size=(n, 2, 2)) * 2.0
@@ -71,3 +78,47 @@ def test_k3_matches_plain_and_every_reduction_agrees():
     for strategy in rc.GRAD_REDUCE:
         red = rc.reduce_entry_grads(rows, ti.entry_rank, n, strategy)
         assert float(((red - ref).abs() / scale).max()) <= 1e-5, strategy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", bitcast.VARIANTS)
+def test_p1_bitcast_exact_and_equal_to_plain(variant):
+    _need_card()
+    gt = bitcast.ground_truth()
+    x = bitcast.variant_input(variant, gt, "cuda")
+    before = bitcast.probe_bitcast.launches
+    got = bitcast.probe_bitcast(variant, x)
+    assert bitcast.probe_bitcast.launches == before + 1
+    torch.cuda.synchronize()
+    assert bitcast.exact(variant, got, gt)
+    assert bitcast.same_bits(got, bitcast.probe_bitcast_plain(variant, x))
+    xt, offsets = bitcast.table_case(variant, 4096, "cuda")
+    assert bitcast.same_bits(bitcast.probe_bitcast(variant, xt, offsets),
+                             bitcast.probe_bitcast_plain(variant, xt, offsets))
+
+
+@pytest.mark.cuda
+def test_p1_bitcast_rejects_unaligned_input():
+    _need_card()
+    flat = torch.zeros(2 + 8 * 32, dtype=torch.int16, device="cuda")
+    x = flat[2:].view(8, 32)  # contiguous, 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        bitcast.probe_bitcast("A", x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", op_costs.OPS)
+def test_p2_op_costs_match_plain(op):
+    _need_card()
+    x = op_costs.tile(128, "cuda")
+    before = op_costs.probe_op_costs.launches
+    got = op_costs.probe_op_costs(op, x)
+    assert op_costs.probe_op_costs.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    tol = op_costs.TOLERANCE.get(op, 0.0)
+    assert op_costs.rel_err(got, op_costs.probe_op_costs_plain(op, x)) <= tol
+    if op in op_costs.TRI:  # after one pass, before the values underflow
+        one = op_costs.probe_op_costs(op, x, 1)
+        assert float(one.abs().max()) > 0.1
+        assert op_costs.rel_err(one, op_costs.probe_op_costs_plain(op, x, 1)) <= tol

@@ -4,7 +4,9 @@ An AST scan, not a ``sys.modules`` check: the interpreter here imports jax
 at start-up, so only the source can show what the port imports.
 """
 import ast
+import importlib
 import os
+import pkgutil
 
 import numpy as np
 import pytest
@@ -72,3 +74,38 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         render_path.main([path, str(tmp_path / "out"), "--frames", "1"])
     assert not (tmp_path / "out").exists()
+
+
+def test_every_module_imports_without_nvcc():
+    """Importing builds nothing: kernels build at their first launch."""
+    from tinysplat_torch.ops import _build
+
+    names = [m.name for m in pkgutil.walk_packages(tt.__path__, "tinysplat_torch.")]
+    for new in ("models.densify", "train_loop", "train_cli", "io.checkpoint",
+                "probes.bitcast", "probes.op_costs"):
+        assert f"tinysplat_torch.{new}" in names
+    for name in names:
+        importlib.import_module(name)
+    assert not _build._loaded
+    for kernel in ("probe_bitcast", "probe_op_costs"):
+        assert kernel in _build.KERNELS and (_build.CSRC / f"{kernel}.cu").exists()
+
+
+def test_trainer_cli_and_probes_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from tinysplat_torch import train_cli
+    from tinysplat_torch.probes import bitcast, op_costs
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["--no-viewer", "--synthetic", "--train", "--max-iter", "1"])
+    for probe in (bitcast, op_costs):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            probe.main([])
+    from tinysplat_torch.io.checkpoint import load_checkpoint, save_checkpoint
+
+    pcd = synthetic_pcd(50, seed=0)
+    path = str(tmp_path / "c.npz")
+    save_checkpoint(path, tt.init_from_pcd(pcd.xyz, pcd.colors, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_checkpoint(path, tt.Config())

@@ -8,16 +8,19 @@ when CUDA is asked for without a card; tests pass ``device="cpu"``, where
 each kernel's plain PyTorch version runs instead.
 
 Ported so far: serving rendered frames (checkpoint load -> projection ->
-SH colours -> tile binning -> compositing, kernel K1) and one training step
+SH colours -> tile binning -> compositing, kernel K1); one training step
 (``make_train_step``: render -> L1 + DSSIM -> backward through the
 compositing backward K2 and the gradient reduction, K3 under
-``grad_reduce="mxu"`` -> Adam -> the densify gradient accumulator).
-Densification, the trainer loop and checkpoint saving come next.
+``grad_reduce="mxu"`` -> Adam -> the densify gradient accumulator, with
+the pose / appearance deltas of ``pose_opt`` / ``app_opt``); the trainer
+(``train_loop.Trainer``: densify, capacity growth, compaction, checkpoints
+and resume, ``python -m tinysplat_torch.train_cli``); and the Hopper
+counterparts of the JAX package's two kernel probes (``probes``).
 """
 
 from .cameras import Camera, CameraParams
 from .config import Config
-from .io.checkpoint import load_model
+from .io.checkpoint import load_checkpoint, load_model, save_checkpoint
 from .models.gaussians import (
     GaussianParams,
     GaussianState,
@@ -29,6 +32,7 @@ from .models.gaussians import (
 from .render import render
 from .scene import PointCloud, Scene
 from .train import compute_losses, init_opt_state, make_train_step
+from .train_loop import Trainer
 
 __version__ = "0.1.0"
 
@@ -40,13 +44,16 @@ __all__ = [
     "GaussianState",
     "PointCloud",
     "Scene",
+    "Trainer",
     "compute_losses",
     "from_jax_params",
     "from_state_dict",
     "init_from_pcd",
     "init_opt_state",
+    "load_checkpoint",
     "load_model",
     "make_train_step",
     "render",
+    "save_checkpoint",
     "state_dict",
 ]

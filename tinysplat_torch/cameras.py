@@ -7,6 +7,8 @@ Torch port of ``tinysplat_tpu.cameras``:
   package, so matrices built by either package are equal bit for bit.
 - ``CameraParams`` holds the tensors that ``render`` consumes, with the JAX
   package's field names; ``Camera.params(device=...)`` builds it.
+- ``so3_exp`` / ``apply_pose_delta`` refine a view by a learnable SE(3)
+  delta (``pose_opt``).
 
 Matrix conventions (view matrix from quaternion + position, the OpenGL-ish
 projection with +z forward and w = z) are those of the JAX package.
@@ -40,6 +42,40 @@ class CameraParams:
     @property
     def full_projmat(self) -> torch.Tensor:
         return self.projmat @ self.viewmat
+
+
+def so3_exp(omega: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' rotation: (3,) axis-angle -> (3, 3) rotation matrix.
+
+    Differentiable at omega == 0: the 1e-24 under the square root keeps
+    theta and the unit axis finite there (the axis is 0 at omega == 0)."""
+    theta = torch.sqrt(torch.sum(omega * omega) + 1e-24)
+    k = omega / theta
+    zero = omega.new_zeros(())
+    K = torch.stack([
+        torch.stack([zero, -k[2], k[1]]),
+        torch.stack([k[2], zero, -k[0]]),
+        torch.stack([-k[1], k[0], zero]),
+    ])
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device)
+    return eye + torch.sin(theta) * K + (1.0 - torch.cos(theta)) * (K @ K)
+
+
+def apply_pose_delta(cam: CameraParams, delta: torch.Tensor) -> CameraParams:
+    """Left-multiply the view matrix by an SE(3) delta (pose refinement).
+
+    delta = (omega[3], tau[3]): R' = exp(omega) R, t' = exp(omega) t + tau,
+    and cam_pos = -R'^T t'. Differentiable with respect to ``delta``
+    through autograd (the gradient path of ``pose_opt``); delta == 0 is the
+    identity.
+    """
+    Rd = so3_exp(delta[:3])
+    R2 = Rd @ cam.viewmat[:3, :3]
+    t2 = Rd @ cam.viewmat[:3, 3] + delta[3:]
+    bottom = torch.zeros((1, 4), dtype=cam.viewmat.dtype, device=cam.viewmat.device)
+    bottom[0, 3] = 1.0
+    view = torch.cat([torch.cat([R2, t2[:, None]], dim=1), bottom])
+    return dataclasses.replace(cam, viewmat=view, cam_pos=-(R2.T @ t2))
 
 
 def make_view_matrix(position: np.ndarray, quat: np.ndarray) -> np.ndarray:

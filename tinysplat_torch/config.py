@@ -5,10 +5,12 @@ written for one package reads the same in the other. Fields that only the
 JAX package's TPU path reads (``tiles_per_block``, the mesh and multi-host
 fields) are kept for that parity; the port's render path reads
 ``rasterizer``, ``tile_size``, ``tile_x``, the binning budgets,
-``antialiased`` and ``viewdirs_mode``, and its train step
+``antialiased`` and ``viewdirs_mode``, its train step
 (``train.make_train_step``) the learning rates, loss weights, regularizer
 windows, ``grad_reduce``, ``sh_degree`` / ``sh_increment_interval``,
-``warmup_grad`` and ``background``.
+``warmup_grad``, ``background`` and ``pose_opt`` / ``app_opt``, and its
+trainer (``train_loop.Trainer``, ``train_cli``) the densify, compaction,
+checkpoint, NaN-guard, coarse-to-fine, evaluation and profiling fields.
 """
 from __future__ import annotations
 

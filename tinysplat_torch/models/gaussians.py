@@ -14,6 +14,7 @@ six tensors trainable leaves, which the optimizer updates in place.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -219,6 +220,76 @@ def from_state_dict(sd: Mapping[str, np.ndarray], capacity: Optional[int] = None
         means_grad_accum=torch.zeros((capacity,), device=dev),
         active_sh_degree=torch.tensor(active_deg, dtype=torch.int32, device=dev),
     )
+
+
+# Dead-slot values of the fields whose zero is not benign (quats: identity).
+SENTINELS = {"scales": -10.0, "opacities": -20.0}
+
+
+def _dead_fill(name: str, t: torch.Tensor, dead: torch.Tensor) -> torch.Tensor:
+    """``t`` (field ``name``) with the dead-slot sentinel written where
+    ``dead``: identity quats, scales -10, opacity logits -20, zeros else."""
+    mask = dead.reshape(dead.shape + (1,) * (t.dim() - 1))
+    if name == "quats":
+        ident = torch.zeros_like(t)
+        ident[:, 0] = 1.0
+        return torch.where(mask, ident, t)
+    return torch.where(mask, SENTINELS.get(name, 0.0), t)
+
+
+def grow_capacity(state: GaussianState, new_capacity: int) -> GaussianState:
+    """Pad every capacity-sized tensor to ``new_capacity`` with dead slots
+    (host-side and rare, as in the JAX package). Returns NEW tensors: the
+    optimizer has to be rebuilt over them (``train.GaussianAdam.carried``)."""
+    cap = state.capacity
+    if new_capacity < cap:
+        raise ValueError(f"new capacity {new_capacity} < current {cap}")
+    dev = state.alive.device
+
+    def pad(x):
+        return torch.cat([x.detach(), x.new_zeros((new_capacity - cap,) + tuple(x.shape[1:]))])
+
+    dead = torch.arange(new_capacity, device=dev) >= cap
+    params = GaussianParams(**{name: _dead_fill(name, pad(t), dead)
+                               for name, t in state.params.fields()})
+    return GaussianState(params=params, alive=pad(state.alive),
+                         means_grad_accum=pad(state.means_grad_accum),
+                         active_sh_degree=state.active_sh_degree)
+
+
+def compact_state(state: GaussianState, opt_state=None, min_capacity: int = 64,
+                  margin: float = 2.0):
+    """Repack live splats contiguously and shrink capacity (the inverse of
+    ``grow_capacity``). Live order is kept (stable sort) and every Adam
+    moment follows its splat.
+
+    The target is the smallest power of two >= n_live * margin, never below
+    ``min_capacity`` nor below n_live. Returns (state, opt_state,
+    compacted): a no-op (False) when the target would not be smaller. ``opt_state`` is a ``train.GaussianAdam`` (or
+    None); the compacted state holds new tensors, so it is rebuilt over
+    them with its moments permuted and its count kept.
+    """
+    cap = state.capacity
+    n_live = int(state.alive.sum())
+    target = max(int(min_capacity),
+                 1 << max(0, math.ceil(math.log2(max(n_live * margin, 1.0)))),
+                 # A margin < 1 must never make compaction destroy live splats.
+                 1 << max(0, math.ceil(math.log2(max(n_live, 1)))))
+    if target >= cap:
+        return state, opt_state, False
+    perm = torch.argsort((~state.alive).to(torch.int8), stable=True)[:target]
+    alive = state.alive[perm]
+    dead = ~alive
+    params = GaussianParams(**{
+        name: (_dead_fill(name, t.detach()[perm], dead) if name in SENTINELS
+               else t.detach()[perm].clone())
+        for name, t in state.params.fields()})
+    new_state = GaussianState(params=params, alive=alive,
+                              means_grad_accum=state.means_grad_accum[perm],
+                              active_sh_degree=state.active_sh_degree)
+    if opt_state is not None:
+        opt_state = opt_state.carried(params, lambda m: m[perm])
+    return new_state, opt_state, True
 
 
 def from_jax_params(d: Mapping[str, np.ndarray], device) -> GaussianState:

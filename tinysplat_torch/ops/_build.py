@@ -11,6 +11,7 @@ parallel: one ``nvcc`` process each, all started together.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("composite_fwd", "composite_bwd", "segsum")
+KERNELS = ("composite_fwd", "composite_bwd", "segsum", "probe_bitcast", "probe_op_costs")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -91,3 +92,26 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _loaded[name] = lib
     return lib
+
+
+@functools.cache
+def _entry_point(name: str, argtypes: tuple):
+    """Source ``name``'s C entry point (of the same name) with its ctypes
+    signature; the library is built on first use."""
+    fn = getattr(load(name), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, argtypes: tuple, device, *args) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream (passed as the
+    last argument); raises if the launch was refused (every entry point
+    returns cudaGetLastError())."""
+    import torch
+
+    fn = _entry_point(name, argtypes)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -33,7 +33,6 @@ Every kernel wrapper launches its kernel on CUDA tensors (counted in its
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -146,30 +145,14 @@ composite_fwd.launches = 0
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The C signature of each kernel's entry point; the CUDA stream comes last.
 _SIGNATURES = {
-    "composite_fwd": [_P, _I, _P, _LL, _P, _P, _P, _P, _I, _I, _P, _P],
-    "composite_bwd": [_P, _I, _P, _LL, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-    "segsum": [_P, _I, _P, _I, _P, _P],
+    "composite_fwd": (_P, _I, _P, _LL, _P, _P, _P, _P, _I, _I, _P, _P),
+    "composite_bwd": (_P, _I, _P, _LL, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
+    "segsum": (_P, _I, _P, _I, _P, _P),
 }
 
 
-@functools.cache
-def _entry_point(name: str):
-    """Kernel ``name``'s C entry point with its ctypes signature (built on
-    first use)."""
-    fn = getattr(_build.load(name), name)
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream; raises if the
-    launch was refused (the entry point returns cudaGetLastError())."""
-    fn = _entry_point(name)
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _build.launch(name, _SIGNATURES[name], device, *args)
 
 
 def composite_fwd_plain(table, entry_rank, tile_starts, counts, sx, sy,

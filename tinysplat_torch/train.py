@@ -17,21 +17,28 @@ own (metrics stay device tensors, the step count is a host int).
   returned state holds those same tensors.
 - The densify signal ``means_grad_accum`` adds ||dL/d xys|| per step once
   ``step >= warmup_grad``.
+- ``pose_opt`` / ``app_opt``: a per-camera SE(3) delta
+  (``cameras.apply_pose_delta``) and an affine colour transform of the
+  render (``apply_appearance``) take part in the loss; the step returns
+  their gradients as ``metrics["pose_grad"]`` (6,) and
+  ``metrics["app_grad"]`` (12,), and the trainer runs their Adams.
+- Densify, growth and compaction keep the optimizer valid: in-place edits
+  go through ``GaussianAdam.moment_pairs``, new tensors through
+  ``GaussianAdam.carried`` (``models/densify.py``, ``models/gaussians.py``).
 
-Not ported yet (raise NotImplementedError): the SuGaR density regularizer,
-camera pose optimization, appearance optimization and the MCMC densify
-strategy's noise step.
+Not ported yet (raise NotImplementedError): the SuGaR density regularizer
+and the MCMC densify strategy's noise step (slice E).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .cameras import CameraParams
+from .cameras import CameraParams, apply_pose_delta
 from .config import Config
 from .models.gaussians import GaussianParams, GaussianState
 from .ops.ssim import psnr, ssim
@@ -41,10 +48,10 @@ ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
 
 
-def _not_ported(what: str, needs: str, slice_: str) -> NotImplementedError:
+def _not_ported(what: str, needs: str, where: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to tinysplat_torch yet: it needs {needs}, which a "
-        f"later slice of the port brings (ROADMAP.md Queue 1, slice {slice_})")
+        f"later slice of the port brings (ROADMAP.md Queue 1, {where})")
 
 
 def _resolve_background(cfg: Config, generator: Optional[torch.Generator] = None,
@@ -112,6 +119,41 @@ class GaussianAdam(torch.optim.Adam):
         self.param_groups[0]["lr"] = means_lr_at(self.cfg, self.count)
         return super().step(closure)
 
+    def moment_pairs(self) -> Iterator[Tuple[str, torch.Tensor, torch.Tensor]]:
+        """(field name, exp_avg, exp_avg_sq) of every field that has taken a
+        step: the optimizer's own tensors, for in-place edits (densify,
+        prune, opacity reset)."""
+        for group in self.param_groups:
+            st = self.state.get(group["params"][0])
+            if st:
+                yield group["name"], st["exp_avg"], st["exp_avg_sq"]
+
+    def moments(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], int]:
+        """(first moments, second moments, count), the moments by field name:
+        the optimizer's own tensors, or zeros for a field not stepped yet."""
+        mu, nu = {}, {}
+        for group in self.param_groups:
+            t, name = group["params"][0], group["name"]
+            st = self.state.get(t)
+            mu[name] = st["exp_avg"] if st else torch.zeros_like(t).detach()
+            nu[name] = st["exp_avg_sq"] if st else torch.zeros_like(t).detach()
+        return mu, nu, self.count
+
+    def carried(self, params: GaussianParams,
+                moment_fn: Callable[[torch.Tensor], torch.Tensor] = lambda m: m
+                ) -> "GaussianAdam":
+        """An optimizer of ``params`` (new tensors: after capacity growth,
+        compaction or a rollback) with this one's moments mapped through
+        ``moment_fn`` and its count kept.
+
+        torch's Adam keys its state by tensor identity, so new parameter
+        tensors need a new optimizer; this is the one place that builds it.
+        """
+        mu, nu, count = self.moments()
+        return optimizer_with_moments(self.cfg, params,
+                                      {k: moment_fn(v) for k, v in mu.items()},
+                                      {k: moment_fn(v) for k, v in nu.items()}, count)
+
 
 def make_optimizer(cfg: Config, params: GaussianParams) -> GaussianAdam:
     """Adam over ``params``' six fields (made trainable leaves here), torch
@@ -124,19 +166,30 @@ def init_opt_state(cfg: Config, state: GaussianState) -> GaussianAdam:
     return make_optimizer(cfg, state.params)
 
 
+def optimizer_with_moments(cfg: Config, params: GaussianParams,
+                           mu: Mapping[str, Any], nu: Mapping[str, Any],
+                           count: int) -> GaussianAdam:
+    """An optimizer of ``params`` holding first and second moments ``mu`` /
+    ``nu`` (field name -> tensor or array, copied onto each field's device)
+    and the update ``count``."""
+    def copy(m, like):
+        if torch.is_tensor(m):
+            return m.to(like.device, torch.float32, copy=True)
+        return torch.tensor(np.asarray(m, np.float32), device=like.device)
+
+    opt = make_optimizer(cfg, params)
+    for name, t in params.fields():
+        opt.state[t] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                        "exp_avg": copy(mu[name], t), "exp_avg_sq": copy(nu[name], t)}
+    return opt
+
+
 def opt_state_from_jax(cfg: Config, state: GaussianState, mu: Mapping[str, np.ndarray],
                        nu: Mapping[str, np.ndarray], count: int) -> GaussianAdam:
     """Carry the JAX package's optax Adam state across: first and second
     moments ``mu`` / ``nu`` (field name -> numpy array) and the update
     ``count``, onto an optimizer of ``state``'s parameters."""
-    opt = make_optimizer(cfg, state.params)
-    for name, t in state.params.fields():
-        opt.state[t] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
-            "exp_avg": torch.tensor(np.asarray(mu[name], np.float32), device=t.device),
-            "exp_avg_sq": torch.tensor(np.asarray(nu[name], np.float32), device=t.device),
-        }
-    return opt
+    return optimizer_with_moments(cfg, state.params, mu, nu, count)
 
 
 class StepOutput(NamedTuple):
@@ -144,6 +197,17 @@ class StepOutput(NamedTuple):
     opt_state: Any
     metrics: Dict[str, Any]
     rendered: torch.Tensor  # (H, W, 3), detached
+
+
+def apply_appearance(rgb: torch.Tensor, app_params: torch.Tensor) -> torch.Tensor:
+    """Per-camera affine exposure compensation (``app_opt``).
+
+    app_params (12,) = a flattened 3x3 delta from the identity + a 3-bias:
+    rgb' = clip(rgb @ (I + A)^T + b, 0, 1). Zero params are the identity.
+    Applied to the RENDERED image inside the training loss only.
+    """
+    A = torch.eye(3, dtype=rgb.dtype, device=rgb.device) + app_params[:9].reshape(3, 3)
+    return torch.clamp(rgb @ A.T + app_params[9:], 0.0, 1.0)
 
 
 def _schedule_gate(active: bool, start: int, stop: int, step: int) -> float:
@@ -169,12 +233,10 @@ def compute_losses(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Total loss + aux dict (the JAX package's loss stack)."""
     if density_probe is not None:
-        raise _not_ported("the SuGaR density regularizer", "regularizers/density.py", "E")
-    if pose_delta is not None:
-        raise _not_ported("camera pose optimization", "cameras.so3_exp / apply_pose_delta",
-                          "C")
-    if app_params is not None:
-        raise _not_ported("appearance optimization", "train.apply_appearance", "C")
+        raise _not_ported("the SuGaR density regularizer", "regularizers/density.py",
+                          "slice E")
+    if pose_delta is not None:  # pose_opt: refine the view by an SE(3) delta
+        camera = apply_pose_delta(camera, pose_delta)
     rgb, extras = render(
         params, state.alive, camera, img_height, img_width, state.active_sh_degree,
         background, rasterizer=cfg.rasterizer, xys_probe=probe,
@@ -184,6 +246,8 @@ def compute_losses(
         tiles_per_block=cfg.tiles_per_block, tile_x=cfg.tile_x,
         antialiased=cfg.antialiased,
     )
+    if app_params is not None:  # app_opt: exposure compensation, loss only
+        rgb = apply_appearance(rgb, app_params)
     loss_l1 = torch.mean(torch.abs(rgb - gt_image))
     loss_ssim = 1.0 - ssim(rgb, gt_image)
     loss = (1.0 - cfg.lambda_dssim) * loss_l1 + cfg.lambda_dssim * loss_ssim
@@ -236,25 +300,23 @@ def make_train_step(cfg: Config, img_height: int, img_width: int):
     """Build the train step for a given image shape.
 
     ``train_step(state, opt_state, camera, gt_image, est_depth, step,
-    generator=None, background=None)`` runs one step and returns a
-    ``StepOutput``. ``opt_state`` is the optimizer of ``state``'s
-    parameters (``init_opt_state`` / ``opt_state_from_jax``), which it
-    updates in place. ``background`` overrides the cfg's background (tests
-    pass the JAX package's draw); ``generator`` draws the random one.
+    generator=None, background=None, pose_delta=None, app_params=None)``
+    runs one step and returns a ``StepOutput``. ``opt_state`` is the
+    optimizer of ``state``'s parameters (``init_opt_state`` /
+    ``opt_state_from_jax``), which it updates in place. ``background``
+    overrides the cfg's background (tests pass the JAX package's draw);
+    ``generator`` draws the random one. Under ``cfg.pose_opt`` /
+    ``cfg.app_opt`` a given ``pose_delta`` (6,) / ``app_params`` (12,)
+    enters the loss and its gradient is returned in the metrics.
     """
-    if cfg.regularize_density:
-        raise _not_ported("regularize_density", "regularizers/density.py", "E")
-    if cfg.pose_opt:
-        raise _not_ported("pose_opt", "cameras.so3_exp / apply_pose_delta", "C")
-    if cfg.app_opt:
-        raise _not_ported("app_opt", "train.apply_appearance", "C")
-    if cfg.densify_strategy == "mcmc":
-        raise _not_ported('densify_strategy="mcmc"', "models/densify_mcmc.py", "E")
+    check_ported(cfg)
 
     def train_step(state: GaussianState, opt_state: GaussianAdam, camera: CameraParams,
                    gt_image: torch.Tensor, est_depth: Optional[torch.Tensor], step: int,
                    generator: Optional[torch.Generator] = None,
-                   background: Optional[torch.Tensor] = None) -> StepOutput:
+                   background: Optional[torch.Tensor] = None,
+                   pose_delta: Optional[torch.Tensor] = None,
+                   app_params: Optional[torch.Tensor] = None) -> StepOutput:
         step = int(step)
         for (name, t), group in zip(state.params.fields(), opt_state.param_groups):
             if group["params"][0] is not t:
@@ -270,9 +332,15 @@ def make_train_step(cfg: Config, img_height: int, img_width: int):
 
         probe = torch.zeros((state.capacity, 2), dtype=gt_image.dtype, device=dev,
                             requires_grad=True)
+        # The camera-side leaves: gradients for the trainer's pose / app Adams.
+        pose = (pose_delta.detach().clone().requires_grad_()
+                if cfg.pose_opt and pose_delta is not None else None)
+        app = (app_params.detach().clone().requires_grad_()
+               if cfg.app_opt and app_params is not None else None)
         opt_state.zero_grad(set_to_none=True)
         loss, aux = compute_losses(state.params, probe, state, camera, gt_image, est_depth,
-                                   background, step, cfg, img_height, img_width)
+                                   background, step, cfg, img_height, img_width,
+                                   pose_delta=pose, app_params=app)
         loss.backward()
         opt_state.step()
 
@@ -294,6 +362,18 @@ def make_train_step(cfg: Config, img_height: int, img_width: int):
             if k in aux:
                 v = aux[k]
                 metrics[k] = v.detach() if torch.is_tensor(v) else v
+        if pose is not None:
+            metrics["pose_grad"] = pose.grad  # (6,); the trainer runs its Adam
+        if app is not None:
+            metrics["app_grad"] = app.grad  # (12,)
         return StepOutput(new_state, opt_state, metrics, aux["rgb"].detach())
 
     return train_step
+
+
+def check_ported(cfg: Config) -> None:
+    """Raise for the options whose modules a later slice brings."""
+    if cfg.regularize_density:
+        raise _not_ported("regularize_density", "regularizers/density.py", "slice E")
+    if cfg.densify_strategy == "mcmc":
+        raise _not_ported('densify_strategy="mcmc"', "models/densify_mcmc.py", "slice E")
