@@ -8,22 +8,30 @@ exits non-zero):
 1. The card (nvidia-smi name and power limit), torch and CUDA versions.
 2. Build every CUDA kernel from ``tinysplat_torch/csrc`` (nvcc, sm_90a).
 3. Hold K1 (``composite_fwd``) against its plain PyTorch version on small
-   synthetic cases: mixed scenes at tile widths 16 and 64, heavy occlusion
-   that saturates T, a tile deeper than one batch, mostly empty tiles.
+   synthetic cases: mixed scenes at tile widths 16, 48 (an image 100 px
+   tall) and 64, heavy occlusion that saturates T, a tile deeper than two
+   batches, mostly empty tiles, and a tile whose 16x16 sub-tiles end at
+   very different depths.
 4. Serve frames at full width: the bench scene (262,144 splats, SH degree
    3, 1066x1600) written as a JAX-layout ``.npz`` checkpoint, loaded with
    ``load_model`` and rendered along an orbit through ``render``. The launch
    counts show the frames went through K1; the frames are checked, and K1
-   is held against its plain version and timed at the frames' own shapes.
+   is held against its plain version and timed at the frames' own shapes,
+   where the work counters give its bound.
 5. Hold K2 (``composite_bwd``) and K3 (``segsum``) against their plain
    versions on phase 3's cases, with a numpy-drawn cotangent: per-entry rows
-   and the per-splat rows of all four ``grad_reduce`` strategies.
+   and the per-splat rows of all four ``grad_reduce`` strategies; two K2
+   launches must give the same bytes (here and in phases 6 and 7).
 6. Train at full width: the bench scene, GT frames rendered from it at 4
    orbit cameras, training from dimmed opacities and perturbed colours. 10
    steps with ``grad_reduce="scatter"`` (K1 and K2 launch once per step; the
    loss falls), then 3 with ``"mxu"`` (K3 once per step; its gradients equal
    the scatter path's). K2 and K3 are held against their plain versions and
-   timed at step 0's shapes, and the step is broken down into layers.
+   timed at step 0's shapes, where the compositing work counters are printed
+   (``composite_counts``: pairs walked, inside the splats' boxes and kept,
+   (entry, warp) pairs with a kept pixel, entries per tile and per
+   sub-tile) and give K2's instruction bound; the step is broken down into
+   layers.
 7. The trainer at full width (``train_loop.Trainer``, ``"mxu"``): phase 6's
    start and views, densify every 4 steps up to step 8, an opacity reset and
    a checkpoint at step 8, the NaN guard every 4. tau_means is set so that
@@ -31,7 +39,8 @@ exits non-zero):
    the 524,288 slots partly, the second overflows them, grows capacity to
    1,048,576 and is redone. 12 steps (K1, K2, K3 once each per step); K1,
    K2 and K3 held against their plain versions at the last step's state,
-   camera and budgets (the grown capacity, tiles up to 8192 deep); then a
+   camera and budgets (the grown capacity, tiles up to 8192 deep), with the
+   counters, and K1 and K2 timed there; then a
    fresh trainer from the step-8 checkpoint replays steps 9-12 and must
    equal the first run to 1e-5 x column max; 4 steps with pose_opt and
    app_opt; evaluate() on a held-out orbit view; a 3-step torch.profiler
@@ -77,12 +86,24 @@ FP32_FLOPS_PER_S = 67e12
 # FP32 operations K1 spends on every (entry, pixel) pair it evaluates:
 # dx, dy (2), sigma (9), exp (1), opacity * exp (1), min (1) and the sigma
 # and alpha tests (2). Contributing pairs cost 12 more; not counted, so the
-# bound stays a lower bound. K2 rebuilds the same alpha for every pair it
-# walks, and is reckoned the same way (its ~40 more operations per
-# contributing pair and its pixel sums are not counted).
+# bound stays a lower bound. K1's bound is this FLOP count at the FP32 peak.
 FLOP_PER_PAIR = 16
+# K2's bound counts issue slots (one FP32 instruction per lane; 128 a clock
+# on each of the 132 SMs at 1980 MHz), priced by the op-cost probe P2's
+# readings on this card: an evaluated (entry, pixel) pair rebuilds K1's
+# alpha, 15 slots and an expf of ~11; a pair the alpha test keeps costs ~51
+# more (one reciprocal of ~10, the T and S updates, ten gradient terms).
+# Both bounds count only the pairs a kernel needs to evaluate: those of its
+# walk (K1: each pixel to its stop; K2: each pixel's own live prefix) whose
+# pixel lies in the splat's alpha-support box, the box the kernels cull by.
+# The counts come from rasterize_cuda.composite_counts (plain torch). K1's
+# recount with the same slots is printed beside its FLOP bound.
+SLOTS_PER_S = 128 * 132 * 1.98e9
+SLOTS_PER_WALKED_PAIR = 26
+SLOTS_PER_KEPT_PAIR = 51
 # K2 vs its plain version, and the per-splat reductions: the masks are K1's
-# bit for bit, only the order of the pixel sums differs.
+# bit for bit, only the order of the pixel sums and K2's fused multiply-adds
+# in the gradient terms differ. Two K2 launches give the same bytes.
 BWD_TOL = 1e-5
 # Phase 7: 12 trainer steps, a densify every 4 (the camera count) up to step
 # 8. A resumed run equals the original to this share of each column's max:
@@ -126,25 +147,27 @@ def compare_kernel(torch, rc, args, label):
     return max_err, got
 
 
-def synthetic_case(torch, rc, label, n, height, width, tile_x, seed, xy_lo=None,
-                   xy_hi=None, conic=None, opacity=(0.05, 1.0), **caps):
-    """K1's inputs for n random screen-space splats (numpy draws)."""
-    rng = np.random.default_rng(seed)
-    lo = xy_lo if xy_lo is not None else (-6.0, -6.0)
-    hi = xy_hi if xy_hi is not None else (width + 6.0, height + 6.0)
+def draw_splats(rng, n, lo, hi, conic=None, opacity=(0.05, 1.0), depth=(0.5, 5.0)):
+    """n random screen-space splats (numpy): xys, depths, covariances, colours,
+    opacities, valid."""
     xys = rng.uniform(lo, hi, size=(n, 2)).astype(np.float32)
-    depths = rng.uniform(0.5, 5.0, size=(n,)).astype(np.float32)
+    depths = rng.uniform(*depth, size=(n,)).astype(np.float32)
     if conic is None:
         L = rng.normal(size=(n, 2, 2)).astype(np.float32) * 2.0
         cov = L @ np.swapaxes(L, 1, 2) + np.eye(2, dtype=np.float32)
     else:
         cov = np.tile(np.linalg.inv(np.asarray(conic, np.float32)), (n, 1, 1))
+    colors = rng.uniform(0, 1, size=(n, 4)).astype(np.float32)
+    opac = rng.uniform(*opacity, size=(n,)).astype(np.float32)
+    return xys, depths, cov, colors, opac, rng.uniform(size=(n,)) > 0.05
+
+
+def splat_case(torch, rc, label, parts, height, width, tile_x, **caps):
+    """(label, K1's inputs) for the union of the splat sets ``parts``."""
+    xys, depths, cov, colors, opac, valid = (np.concatenate(x) for x in zip(*parts))
     inv = np.linalg.inv(cov)
     conics = np.stack([inv[:, 0, 0], inv[:, 0, 1], inv[:, 1, 1]], axis=1)
     radii = np.ceil(3.5 * np.sqrt(np.linalg.eigvalsh(cov).max(axis=1)))
-    colors = rng.uniform(0, 1, size=(n, 4)).astype(np.float32)
-    opac = rng.uniform(*opacity, size=(n,)).astype(np.float32)
-    valid = rng.uniform(size=(n,)) > 0.05
 
     def cuda(x, dtype):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device="cuda")
@@ -154,6 +177,28 @@ def synthetic_case(torch, rc, label, n, height, width, tile_x, seed, xy_lo=None,
         cuda(xys, f32), cuda(depths, f32), cuda(radii, torch.int32), cuda(conics, f32),
         cuda(colors, f32), cuda(opac, f32), cuda(valid, torch.bool), height, width,
         tile_x=tile_x, **caps)
+
+
+def synthetic_case(torch, rc, label, n, height, width, tile_x, seed, xy_lo=None,
+                   xy_hi=None, conic=None, opacity=(0.05, 1.0), **caps):
+    """K1's inputs for n random screen-space splats (numpy draws)."""
+    lo = xy_lo if xy_lo is not None else (-6.0, -6.0)
+    hi = xy_hi if xy_hi is not None else (width + 6.0, height + 6.0)
+    parts = [draw_splats(np.random.default_rng(seed), n, lo, hi, conic, opacity)]
+    return splat_case(torch, rc, label, parts, height, width, tile_x, **caps)
+
+
+def uneven_subtiles_case(torch, rc, tile_x, seed):
+    """One 16 x tile_x tile under 1,500 faint wide splats, with 160 opaque
+    ones in front of its first 16 x 16 sub-tile only: that sub-tile's live
+    prefix ends within ~100 entries, the others' run past 1,000."""
+    rng = np.random.default_rng(seed)
+    faint = draw_splats(rng, 1500, (0, 0), (tile_x, 16), conic=[[0.0025, 0], [0, 0.0025]],
+                        opacity=(0.004, 0.008), depth=(1.0, 5.0))
+    front = draw_splats(rng, 160, (0, 0), (16, 16), conic=[[0.0625, 0], [0, 0.0625]],
+                        opacity=(0.95, 1.0), depth=(0.1, 0.5))
+    return splat_case(torch, rc, f"sub-tiles end apart tile_x={tile_x}", [faint, front], 16,
+                      tile_x, tile_x, max_per_tile=4096)
 
 
 def where_the_time_goes(torch, frame_ms, layers):
@@ -192,8 +237,11 @@ def compare_backward(torch, rc, ti, out, gout, label):
     Returns (K2 max abs error, K3 max abs error, K2 rows)."""
     args = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy)
     rows = rc.composite_bwd(*args, out, gout, ti.tile_x)
+    again = rc.composite_bwd(*args, out, gout, ti.tile_x)
     ref = rc.composite_bwd_plain(*args, out, gout, ti.tile_x)
     torch.cuda.synchronize()
+    if not torch.equal(rows.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"two K2 launches on {label} gave different bytes")
     k2_err, k2_scaled = column_err(torch, rows, ref)
     n = ti.table.shape[0] - 1
     gs, bounds = rc.segsum_inputs(rows, ti.entry_rank, n)
@@ -204,7 +252,8 @@ def compare_backward(torch, rc, ti, out, gout, label):
             torch, rc.reduce_entry_grads(rows, ti.entry_rank, n, strategy),
             plain_reduce(rc, ref, ti.entry_rank, n, strategy))[1]
     live = int((ref.abs().amax(dim=1) > 0).sum())
-    print(f"  {label}: {live} live entry rows; max|K2-plain| {k2_err:.3e} (scaled "
+    print(f"  {label}: {live} live entry rows; K2 twice: same bytes; max|K2-plain| "
+          f"{k2_err:.3e} (scaled "
           f"{k2_scaled:.3e}); max|K3-plain| {k3_err:.3e} (scaled {k3_scaled:.3e}); "
           f"per-splat rows, scaled error by strategy "
           f"{ {k: float(f'{v:.3e}') for k, v in reduced.items()} } (tol {BWD_TOL:g})",
@@ -225,11 +274,43 @@ def random_cotangent(torch, out, seed):
     return gout
 
 
-def kernel_bound(in_bytes, out_bytes, flops):
-    """(bound ms, 'bytes' or 'operations') on the H100's published peaks."""
+def kernel_bound(in_bytes, out_bytes, ops, ops_per_s=FP32_FLOPS_PER_S):
+    """(bound ms, 'bytes' or 'operations') on the H100's published peaks:
+    FP32 FLOP by default, issue slots with ops_per_s=SLOTS_PER_S."""
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def k2_slots(counts):
+    """K2's issue slots at one frame's counters (see SLOTS_PER_WALKED_PAIR)."""
+    pairs = counts["pairs"]
+    return pairs["k2_box"] * SLOTS_PER_WALKED_PAIR + pairs["kept"] * SLOTS_PER_KEPT_PAIR
+
+
+def print_counts(rc, ti, out, label):
+    """The compositing work counters of one frame (``composite_counts``:
+    plain torch over K1's output and the backward's keep masks), printed."""
+    c = rc.composite_counts(ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx,
+                            ti.sy, out, ti.tile_x)
+    pairs = c["pairs"]
+
+    def stats(d):
+        return f"mean {d['mean']:.1f} p99 {d['p99']:.1f} max {d['max']:.0f}"
+
+    warps = c["warps"]
+    print(f"  counters at {label}: (entry, pixel) pairs K1 walks {pairs['k1']} ("
+          f"{pairs['k1_box']} inside the splats' boxes); K2 own-pixel prefix "
+          f"{pairs['k2_pixel']} ({pairs['k2_box']} inside the boxes), 16x16 sub-tile prefix "
+          f"{pairs['k2_sub']}; kept by the alpha test {pairs['kept']} "
+          f"({pairs['kept'] / max(pairs['k2_pixel'], 1):.4f} of the own-pixel walk)",
+          flush=True)
+    print(f"  (entry, 8x4 warp) pairs with a kept pixel: {warps['kept']} of {warps['walked']} "
+          f"walked ({warps['kept'] / max(warps['walked'], 1):.4f})", flush=True)
+    print(f"  entries walked per tile: K1 {stats(c['tile_entries']['k1'])}, K2 "
+          f"{stats(c['tile_entries']['k2'])}; per 16x16 sub-tile: K1 "
+          f"{stats(c['sub_entries']['k1'])}, K2 {stats(c['sub_entries']['k2'])}", flush=True)
+    return c
 
 
 def nbytes(*tensors):
@@ -410,6 +491,7 @@ def trainer_phase(torch, rc, tt, Config, views, gts, serve_state, deg, bg):
     """Phase 7: ``Trainer`` at full width; see the module docstring."""
     from tinysplat_torch.data.synthetic import orbit_cameras
     from tinysplat_torch.io.checkpoint import load_checkpoint, load_model, save_checkpoint
+    from tinysplat_torch.probes import timed_ms
     from tinysplat_torch.render import render
     from tinysplat_torch.scene import Scene
     from tinysplat_torch.train_loop import Trainer
@@ -492,9 +574,22 @@ def trainer_phase(torch, rc, tt, Config, views, gts, serve_state, deg, bg):
             torch, rc, tr.state, camera.params("cuda"), tr._device_image(camera, WIDTH, HEIGHT),
             int(tr.state.active_sh_degree), tr.cfg, budgets)
         label = f"trainer step {tr.step}, {int(tr.state.num_live())} live in {tr.state.capacity}"
-        compare_kernel(torch, rc, (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx,
-                                   ti.sy, ti.tile_x), label)
-        compare_backward(torch, rc, ti, out, gout, label)
+        fargs = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy, ti.tile_x)
+        compare_kernel(torch, rc, fargs, label)
+        rows = compare_backward(torch, rc, ti, out, gout, label)[2]
+        counts = print_counts(rc, ti, out, label)
+        bargs = fargs[:6] + (out, gout, ti.tile_x)
+        k1_ms = timed_ms(lambda: rc.composite_fwd(*fargs), 10, device_only=True)
+        k2_ms = timed_ms(lambda: rc.composite_bwd(*bargs), 10, device_only=True)
+        k1_bound, k1_by = kernel_bound(nbytes(*fargs[:6]), nbytes(out),
+                                       counts["pairs"]["k1_box"] * FLOP_PER_PAIR)
+        k2_bound, k2_by = kernel_bound(nbytes(*fargs[:6], out[:, 4:7], gout[:, 0:5]),
+                                       nbytes(rows), k2_slots(counts), SLOTS_PER_S)
+        scratch = rc.subtiles_per_tile(ti.tile_x) * nbytes(rows)
+        print(f"  K1 at the trainer's last step: median {k1_ms:.4f} ms over 10 launches, bound "
+              f"{k1_bound:.4f} ms by {k1_by} (FLOP); K2: median {k2_ms:.4f} ms, bound "
+              f"{k2_bound:.4f} ms by {k2_by} (issue slots); K2's sub-tile scratch "
+              f"{scratch / 1e6:.1f} MB", flush=True)
 
         # Resume: a fresh trainer from the step-8 checkpoint replays 9-12.
         (path,) = [os.path.join(cfg.checkpoint_dir, f) for f in os.listdir(cfg.checkpoint_dir)]
@@ -651,13 +746,21 @@ def main() -> int:
                        max_per_tile=4096),
         synthetic_case(torch, rc, "mostly empty tile_x=64", 40, 128, 1024, 64, seed=4,
                        conic=[[2.0, 0.0], [0.0, 2.0]]),
+        uneven_subtiles_case(torch, rc, 64, seed=5),
+        synthetic_case(torch, rc, "mixed tile_x=48, height 100", 3000, 100, 256, 48, seed=6),
     ]
     for label, ti in cases:
         args = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy, ti.tile_x)
         compare_kernel(torch, rc, args, label)
     deep = cases[3][1]
-    if int(deep.counts.max()) <= 16 * 32:
-        raise AssertionError("the deep-tile case must exceed one batch of entries")
+    if int(deep.counts.max()) <= 2 * rc.SUB_THREADS:
+        raise AssertionError("the deep-tile case must exceed two K1 batches of entries")
+    _, uneven = cases[5]
+    sub_live = rc.subtile_live(rc.composite_fwd(*uneven[:6], uneven.tile_x), uneven.counts,
+                               uneven.tile_x)[0]
+    print(f"  sub-tile live prefixes of the uneven tile: {sub_live.tolist()}", flush=True)
+    if not int(sub_live[0]) * 4 < int(sub_live[1:].min()):
+        raise AssertionError("the uneven case's sub-tiles must end at different depths")
 
     # -- 4. serving at full width ----------------------------------------------
     print(f"phase 4: serve {FRAMES} frames, {N_SPLATS} splats, {HEIGHT}x{WIDTH}", flush=True)
@@ -740,7 +843,7 @@ def main() -> int:
 
     k1_ms = timed_ms(lambda: rc.composite_fwd(*args), 20, device_only=True)
     plain_ms = timed_ms(lambda: rc.composite_fwd_plain(*args), 3, device_only=True)
-    pairs = int(torch.minimum(out[:, 5] + 1, ti.counts[:, None].float()).sum())
+    pairs = print_counts(rc, ti, out, "bench frame 0")["pairs"]["k1_box"]
     tile_pairs = int(ti.counts.long().sum()) * 16 * ti.tile_x
     in_bytes = sum(x.numel() * x.element_size() for x in args[:6])
     out_bytes = out.numel() * out.element_size()
@@ -748,6 +851,7 @@ def main() -> int:
     ops_ms = pairs * FLOP_PER_PAIR / FP32_FLOPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    k1_slot_ms = pairs * SLOTS_PER_WALKED_PAIR / SLOTS_PER_S * 1e3
     intersections = [ex["binning"]["intersections"] for _, ex in results]
     med_frame = statistics.median(frame_ms)
     print(f"  frame: median {med_frame:.3f} ms (CUDA events), host median "
@@ -755,8 +859,9 @@ def main() -> int:
           f"intersections per frame {intersections}", flush=True)
     print(f"  K1 at frame 0: median {k1_ms:.4f} ms over 20 launches; plain version "
           f"{plain_ms:.2f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-          f"(bytes {in_bytes + out_bytes} -> {bytes_ms:.4f} ms, {pairs} pairs walked x "
-          f"{FLOP_PER_PAIR} FLOP -> {ops_ms:.4f} ms; all entries x pixels {tile_pairs})",
+          f"(bytes {in_bytes + out_bytes} -> {bytes_ms:.4f} ms, {pairs} pairs in boxes x "
+          f"{FLOP_PER_PAIR} FLOP -> {ops_ms:.4f} ms; all entries x pixels {tile_pairs}); "
+          f"instruction recount {k1_slot_ms:.4f} ms ({SLOTS_PER_WALKED_PAIR} slots a pair)",
           flush=True)
     binning_ms = timed_ms(lambda: rc.bin_splats_dense(
         s.xys, s.proj.depths, s.proj.radii, s.valid, ti.tiles_x, ti.tiles_y,
@@ -861,9 +966,11 @@ def main() -> int:
     k2_ms = timed_ms(lambda: rc.composite_bwd(*bargs), 20, device_only=True)
     k2_plain_ms = timed_ms(lambda: rc.composite_bwd_plain(*bargs), 3, device_only=True)
     live_t = torch.minimum(out0[:, 6].amax(dim=1).long(), ti0.counts.long())
-    k2_pairs = int(live_t.sum()) * 16 * ti0.tile_x
+    counts0 = print_counts(rc, ti0, out0, "bench step 0")
+    k2_pairs = counts0["pairs"]["k2_box"]
     k2_in = nbytes(*bargs[:6], out0[:, 4:7], gout0[:, 0:5])
-    k2_bound, k2_by = kernel_bound(k2_in, nbytes(rows0), k2_pairs * FLOP_PER_PAIR)
+    k2_flop_bound = kernel_bound(k2_in, nbytes(rows0), k2_pairs * FLOP_PER_PAIR)[0]
+    k2_bound, k2_by = kernel_bound(k2_in, nbytes(rows0), k2_slots(counts0), SLOTS_PER_S)
     n0 = ti0.table.shape[0] - 1
     gs0, bounds0 = rc.segsum_inputs(rows0, ti0.entry_rank, n0)
     k3_ms = timed_ms(lambda: rc.segsum(gs0, bounds0), 20, device_only=True)
@@ -876,10 +983,12 @@ def main() -> int:
     k3_bound, k3_by = kernel_bound(summed * rc.TABLE_COLS * 4 + nbytes(bounds0),
                                    n0 * rc.TABLE_COLS * 4, summed * rc.TABLE_COLS)
     print(f"  K2 at step 0: median {k2_ms:.4f} ms over 20 launches; plain version "
-          f"{k2_plain_ms:.2f} ms; bound {k2_bound:.4f} ms by {k2_by} ({k2_pairs} pairs walked "
-          f"x {FLOP_PER_PAIR} FLOP; {k2_in + nbytes(rows0)} bytes; {ti0.tiles_x * ti0.tiles_y} "
-          f"tiles, live prefix max {int(live_t.max())} mean {float(live_t.float().mean()):.1f})",
-          flush=True)
+          f"{k2_plain_ms:.2f} ms; instruction bound {k2_bound:.4f} ms by {k2_by} "
+          f"({k2_pairs} own-prefix pairs in boxes x {SLOTS_PER_WALKED_PAIR} + "
+          f"{counts0['pairs']['kept']} kept x {SLOTS_PER_KEPT_PAIR} slots; "
+          f"{k2_in + nbytes(rows0)} bytes); FLOP bound {k2_flop_bound:.4f} ms (the same pairs "
+          f"x {FLOP_PER_PAIR}); {ti0.tiles_x * ti0.tiles_y} tiles, live prefix max "
+          f"{int(live_t.max())} mean {float(live_t.float().mean()):.1f}", flush=True)
     print(f"  K3 at step 0: median {k3_ms:.4f} ms over 20 launches; plain version "
           f"{k3_plain_ms:.2f} ms; index_add_ on the unsorted rows {k3_lib_ms:.4f} ms; bound "
           f"{k3_bound:.4f} ms by {k3_by} ({summed} rows into {n0} splats, longest run "

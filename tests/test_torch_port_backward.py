@@ -144,6 +144,92 @@ def test_composite_bwd_plain_matches_pallas_rows():
     assert ratio.max() <= 1e-4, ratio.max(axis=0)
 
 
+def _brute_counts(ti, out, tile_x):
+    """composite_counts' pair and warp counts, one tile, entry and pixel at
+    a time in numpy float32, from K1's output rows, the same alpha
+    arithmetic and each row's box (entry_extent); warps as K1 and K2 run
+    them: 8 x 4 patches of 16 x 16 sub-tiles."""
+    table, ranks = ti.table.numpy(), ti.entry_rank.numpy()
+    extent = rc.entry_extent(ti.table).numpy()
+    starts, counts = ti.tile_starts.numpy(), ti.counts.numpy()
+    sentinel, p = table.shape[0] - 1, 16 * tile_x
+    pix = np.arange(p)
+    lx, ly = pix % tile_x, pix // tile_x
+    wid = (ly // 4) * (tile_x // 8) + lx // 8
+    got = dict.fromkeys(["k1", "k1_box", "k2_pixel", "k2_box", "k2_sub", "kept", "walked",
+                         "kept warps", "kept outside the box"], 0)
+    out = out.numpy()
+    for t in range(starts.shape[0]):
+        n_contrib, cnt = out[t, 5].astype(int), int(counts[t])
+        k1 = np.minimum(n_contrib + 1, cnt)
+        own = np.minimum(out[t, 6].astype(int), cnt)
+        sub_live = [int(own[lx // 16 == s].max()) for s in range(tile_x // 16)]
+        got["k1"] += int(k1.sum())
+        got["k2_pixel"] += int(own.sum())
+        got["k2_sub"] += sum(sub_live) * 256
+        got["walked"] += sum(sub_live) * 8
+        px = (ti.sx[t].item() + lx).astype(np.float32)
+        py = (ti.sy[t].item() + ly).astype(np.float32)
+        for e in range(int(k1.max())):
+            r = int(ranks[starts[t] + e])
+            r = sentinel if r < 0 or r > sentinel else r
+            x, y, a, b, c, op = table[r, :6]
+            dx, dy = px - x, py - y
+            sigma = np.float32(0.5) * (a * dx * dx + c * dy * dy) + b * dx * dy
+            alpha = np.minimum(op * np.exp(-sigma), np.float32(0.999))
+            kept = (e < n_contrib) & (sigma >= 0) & (alpha >= np.float32(1.0 / 255.0))
+            inside = (np.abs(dx) <= extent[r, 0]) & (np.abs(dy) <= extent[r, 1])
+            got["k1_box"] += int((inside & (e < k1)).sum())
+            got["k2_box"] += int((inside & (e < own)).sum())
+            got["kept"] += int(kept.sum())
+            got["kept warps"] += len(np.unique(wid[kept]))
+            got["kept outside the box"] += int((kept & ~inside).sum())
+    return got
+
+
+@pytest.mark.parametrize("tile_x", [16, 64])
+def test_composite_counts_match_brute_force(tile_x):
+    case = random_case(n=160, H=40, W=72, seed=11)
+    ti = rc.tile_inputs(*_torch_args(case)[:9], tile_x=tile_x)
+    args = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy)
+    out = rc.composite_fwd(*args, tile_x)
+    counts = rc.composite_counts(*args, out, tile_x)
+    ref = _brute_counts(ti, out, tile_x)
+    for name in ("k1", "k1_box", "k2_pixel", "k2_box", "k2_sub", "kept"):
+        assert counts["pairs"][name] == ref[name], name
+    assert counts["warps"] == {"walked": ref["walked"], "kept": ref["kept warps"]}
+    # The box is sound (no kept pair outside it) and culls.
+    assert ref["kept outside the box"] == 0
+    assert 0 < ref["kept"] < ref["k2_box"] < ref["k2_pixel"] <= ref["k2_sub"]
+    assert ref["k2_box"] <= ref["k1_box"] < ref["k1"]
+    live = torch.minimum(out[:, 6].amax(dim=1), ti.counts.float())
+    assert counts["tile_entries"]["k2"]["max"] == float(live.max())
+    assert counts["sub_entries"]["k2"]["max"] == float(live.max())
+    assert counts["sub_entries"]["k2"]["mean"] <= counts["tile_entries"]["k2"]["mean"]
+
+
+def test_entry_extent_boxes():
+    """The box's edge cases: no pixel passes below 1/255 or at a NaN
+    opacity (-inf), no bound for a conic that is not positive definite or is
+    too thin (+inf); a round splat's box holds its alpha support."""
+    inf = float("inf")
+    rows = torch.zeros((6, rc.TABLE_COLS))
+    rows[:, 2:6] = torch.tensor([
+        [0.5, 0.0, 0.5, 1.0],  # round: sigma = r^2 / 4
+        [0.5, 0.0, 0.5, 0.003],  # below 1/255
+        [0.5, 0.0, 0.5, float("nan")],
+        [0.5, 0.6, 0.5, 1.0],  # det < 0
+        [1e3, 0.0, 1e-3, 1.0],  # condition number 1e6
+        [0.0, 0.0, 0.0, 0.0],  # the sentinel row
+    ])
+    ext = rc.entry_extent(rows)
+    assert ext.dtype == torch.float32
+    # alpha >= 1/255 needs r^2 / 4 <= ln 255, r <= 4.71; the box adds margins.
+    assert 4.71 < float(ext[0, 0]) == float(ext[0, 1]) < 6.0
+    for i, want in ((1, -inf), (2, -inf), (3, inf), (4, inf), (5, -inf)):
+        assert ext[i].tolist() == [want, want], i
+
+
 def _random_rows(d=400, n=60, seed=0):
     rng = np.random.default_rng(seed)
     ranks = rng.integers(-1, n, size=d).astype(np.int32)  # -1 = pad slot

@@ -4,11 +4,13 @@ JAX-free, so that it runs where only the port and CUDA torch are
 installed: ``python -m pytest tests/test_torch_port_cuda.py`` on a GPU.
 Every test is marked ``cuda`` and skips where torch sees no CUDA device.
 
-Tolerances: K2's per-entry rows to 1e-5 x the column's max |plain| (the
-masks are K1's bit for bit; only the order of the pixel sums differs); K3
-bit for bit (it adds each run in the plain version's order). The probes:
-P1 bit for bit (it moves bits as integers); P2 per row, as
-``op_costs.TOLERANCE`` states with its reasons.
+Tolerances: K1 bit for bit (the same float32 ops in the same order); K2's
+per-entry rows to 1e-5 x the column's max |plain| (the masks are K1's bit
+for bit; only the order of the pixel sums and K2's fused multiply-adds in
+the gradient terms differ), and two K2 launches byte for byte; K3 bit for
+bit (it adds each run in the plain version's order). The probes: P1 bit for
+bit (it moves bits as integers); P2 per row, as ``op_costs.TOLERANCE``
+states with its reasons.
 """
 import numpy as np
 import pytest
@@ -23,24 +25,35 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU build")
 
 
-def _case(n, height, width, tile_x, seed):
-    """Compositing inputs for n random screen-space splats on the card."""
+def _splats(rng, n, lo, hi, cov=None, opacity=(0.05, 1.0), depth=(0.5, 5.0)):
+    """n random screen-space splats: xys, depths, covariances, colours, opacities."""
+    xys = rng.uniform(lo, hi, size=(n, 2))
+    if cov is None:
+        L = rng.normal(size=(n, 2, 2)) * 2.0
+        cov = L @ np.swapaxes(L, 1, 2) + np.eye(2)
+    else:
+        cov = np.tile(np.asarray(cov, np.float64), (n, 1, 1))
+    return (xys, rng.uniform(*depth, size=n), cov, rng.uniform(0, 1, (n, 4)),
+            rng.uniform(*opacity, size=n))
+
+
+def _inputs(parts, height, width, tile_x, seed, **caps):
+    """Compositing inputs on the card for the splat sets ``parts``, K1's
+    output and a numpy-drawn cotangent of its rows 0-4."""
     _need_card()
-    rng = np.random.default_rng(seed)
-    xys = rng.uniform((-6, -6), (width + 6, height + 6), size=(n, 2))
-    L = rng.normal(size=(n, 2, 2)) * 2.0
-    cov = L @ np.swapaxes(L, 1, 2) + np.eye(2)
+    xys, depths, cov, colors, opac = (np.concatenate(x) for x in zip(*parts))
     inv = np.linalg.inv(cov)
     radii = np.ceil(3.5 * np.sqrt(np.linalg.eigvalsh(cov).max(axis=1)))
+    rng = np.random.default_rng(seed)
 
     def cuda(x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device="cuda")
 
     ti = rc.tile_inputs(
-        cuda(xys), cuda(rng.uniform(0.5, 5.0, n)), cuda(radii, torch.int32),
-        cuda(np.stack([inv[:, 0, 0], inv[:, 0, 1], inv[:, 1, 1]], axis=1)),
-        cuda(rng.uniform(0, 1, (n, 4))), cuda(rng.uniform(0.05, 1.0, n)),
-        cuda(rng.uniform(size=n) > 0.05, torch.bool), height, width, tile_x=tile_x)
+        cuda(xys), cuda(depths), cuda(radii, torch.int32),
+        cuda(np.stack([inv[:, 0, 0], inv[:, 0, 1], inv[:, 1, 1]], axis=1)), cuda(colors),
+        cuda(opac), cuda(rng.uniform(size=len(opac)) > 0.05, torch.bool), height, width,
+        tile_x=tile_x, **caps)
     args = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy)
     out = rc.composite_fwd(*args, tile_x)
     gout = torch.zeros_like(out)
@@ -48,19 +61,98 @@ def _case(n, height, width, tile_x, seed):
     return ti, args, out, gout
 
 
+def _case(n, height, width, tile_x, seed):
+    """n random splats over a height x width image."""
+    rng = np.random.default_rng(seed)
+    return _inputs([_splats(rng, n, (-6, -6), (width + 6, height + 6))], height, width,
+                   tile_x, seed)
+
+
+def _deep_case(tile_x):
+    """One 16 x tile_x tile under 1,500 faint wide splats (deeper than two
+    K1 batches of 256 entries), and 160 opaque ones in front of its first
+    sub-tile only: the first sub-tile's live prefix ends early, the others'
+    run deep."""
+    rng = np.random.default_rng(tile_x)
+    faint = _splats(rng, 1500, (0, 0), (tile_x, 16), cov=[[400, 0], [0, 400]],
+                    opacity=(0.004, 0.008), depth=(1.0, 5.0))
+    front = _splats(rng, 160, (0, 0), (16, 16), cov=[[16, 0], [0, 16]], opacity=(0.95, 1.0),
+                    depth=(0.1, 0.5))
+    return _inputs([faint, front], 16, tile_x, tile_x, tile_x + 1, max_per_tile=4096)
+
+
+# name -> inputs: mixed scenes at every tile width (the image 100 px tall,
+# not a multiple of 16), and the deep tile whose sub-tiles end apart.
+CASES = {
+    **{f"mixed tile_x={x}": (lambda x=x: _case(700, 100, 160, x, seed=x)) for x in (16, 32, 48, 64)},
+    "deep tile_x=64": lambda: _deep_case(64),
+    "deep tile_x=48": lambda: _deep_case(48),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile_x", [16, 64])
-def test_k2_matches_plain(tile_x):
-    ti, args, out, gout = _case(600, 64, 128, tile_x, seed=tile_x)
+@pytest.mark.parametrize("name", list(CASES))
+def test_k1_bit_equal_to_plain(name):
+    ti, args, out, _ = CASES[name]()
+    before = rc.composite_fwd.launches
+    got = rc.composite_fwd(*args, ti.tile_x)
+    assert rc.composite_fwd.launches == before + 1
+    ref = rc.composite_fwd_plain(*args, ti.tile_x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(got, out)  # and launch after launch
+
+
+@pytest.mark.cuda
+def test_deep_cases_are_deep_and_uneven():
+    for name in ("deep tile_x=64", "deep tile_x=48"):
+        ti, _, out, _ = CASES[name]()
+        assert int(ti.counts.max()) > 2 * rc.SUB_THREADS, name
+        live = rc.subtile_live(out, ti.counts, ti.tile_x)[0]
+        assert int(live[0]) * 4 < int(live[1:].min()), (name, live.tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CASES))
+def test_k2_matches_plain(name):
+    ti, args, out, gout = CASES[name]()
     before = rc.composite_bwd.launches
-    got = rc.composite_bwd(*args, out, gout, tile_x)
+    got = rc.composite_bwd(*args, out, gout, ti.tile_x)
     assert rc.composite_bwd.launches == before + 1
-    ref = rc.composite_bwd_plain(*args, out, gout, tile_x)
+    again = rc.composite_bwd(*args, out, gout, ti.tile_x)
+    ref = rc.composite_bwd_plain(*args, out, gout, ti.tile_x)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
     scale = ref.abs().amax(dim=0).clamp(min=1e-30)
     assert float(((got - ref).abs() / scale).max()) <= 1e-5
     assert (ref.abs().amax(dim=1) > 0).sum() > 100  # a live prefix was compared
+
+
+@pytest.mark.cuda
+def test_nan_opacity_matches_plain():
+    """Splats with a NaN opacity: NaN alpha, never kept (as torch.clamp has
+    it). K1 equals its plain version and its output at opacity 0; K2 matches
+    its plain version, NaN in the same places (the d-opacity column of the
+    NaN entries in the live prefix)."""
+    ti, args, _, gout = _case(700, 100, 160, 64, seed=5)
+    nan, zero = ti.table.clone(), ti.table.clone()
+    nan[:-1:5, 5] = float("nan")
+    zero[:-1:5, 5] = 0.0
+    out = rc.composite_fwd(nan, *args[1:], 64)
+    assert torch.equal(out, rc.composite_fwd_plain(nan, *args[1:], 64))
+    assert torch.equal(out, rc.composite_fwd(zero, *args[1:], 64))
+    got = rc.composite_bwd(nan, *args[1:], out, gout, 64)
+    again = rc.composite_bwd(nan, *args[1:], out, gout, 64)
+    ref = rc.composite_bwd_plain(nan, *args[1:], out, gout, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    is_nan = torch.isnan(ref)
+    assert is_nan[:, 5].any() and not is_nan[:, :5].any() and not is_nan[:, 6:].any()
+    assert torch.equal(torch.isnan(got), is_nan)
+    ref, got = ref.nan_to_num(0.0), got.nan_to_num(0.0)
+    scale = ref.abs().amax(dim=0).clamp(min=1e-30)
+    assert float(((got - ref).abs() / scale).max()) <= 1e-5
 
 
 @pytest.mark.cuda

@@ -145,6 +145,86 @@ def test_argument_checks():
                          ti.sx, ti.sy, ti.tile_x)
 
 
+def test_subtile_shape_checks():
+    assert [rc.subtiles_per_tile(x) for x in (16, 32, 48, 64)] == [1, 2, 3, 4]
+    for bad in (0, -16, 8, 24, 40):
+        with pytest.raises(ValueError, match="sub-tile width"):
+            rc.subtiles_per_tile(bad)
+    ti = rc.tile_inputs(*_torch_args(random_case(n=20, H=16, W=48, seed=1))[:9], tile_x=48)
+    with pytest.raises(ValueError, match="sub-tile width"):
+        rc.composite_fwd(ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy, 24)
+
+
+def test_warp_footprints_tile_the_subtiles():
+    """8 x 4 warps: 32 pixels each, 8 per 16 x 16 sub-tile, none across a
+    sub-tile edge."""
+    assert rc.WARP_FOOTPRINT == (8, 4)
+    for tile_x in (16, 48, 64):
+        wid = rc.warp_ids(tile_x).numpy()
+        pix = np.arange(16 * tile_x)
+        lx, ly = pix % tile_x, pix // tile_x
+        assert (np.bincount(wid) == 32).all()
+        assert len(np.unique(wid)) == 8 * (tile_x // rc.SUB_X)
+        for w in np.unique(wid):
+            xs, ys = lx[wid == w], ly[wid == w]
+            assert xs.max() - xs.min() == 7 and ys.max() - ys.min() == 3
+            assert len(np.unique(xs // rc.SUB_X)) == 1
+
+
+def test_nan_opacity_is_never_kept():
+    """A NaN opacity gives a NaN alpha, which the alpha test never keeps (as
+    torch.clamp has it, and the kernels since they cull by the same test):
+    K1's plain version composites as if the opacity were 0, and the
+    backward's rows are those of opacity 0, but NaN in the d-opacity column
+    of the live entries whose opacity is NaN."""
+    ti = rc.tile_inputs(*_torch_args(random_case(n=160, H=40, W=72, seed=6))[:9], tile_x=32)
+    nan, zero = ti.table.clone(), ti.table.clone()
+    nan[:-1:5, 5] = float("nan")
+    zero[:-1:5, 5] = 0.0
+    rest = (ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy)
+    out = rc.composite_fwd(nan, *rest, 32)
+    assert torch.equal(out, rc.composite_fwd(zero, *rest, 32))
+    gout = torch.from_numpy(np.random.default_rng(2).normal(size=tuple(out.shape))
+                            .astype(np.float32))
+    got = rc.composite_bwd(nan, *rest, out, gout, 32)
+    ref = rc.composite_bwd(zero, *rest, out, gout, 32)
+    is_nan = torch.isnan(got)
+    assert not is_nan[:, :5].any() and not is_nan[:, 6:].any()
+    assert torch.equal(got[:, :5], ref[:, :5]) and torch.equal(got[:, 6:], ref[:, 6:])
+    ranks = ti.entry_rank.long()
+    nan_entry = torch.isnan(nan[torch.where(ranks < 0, -1, ranks), 5])
+    tile_live = torch.minimum(out[:, 6].amax(dim=1).long(), ti.counts.long())
+    in_prefix = torch.zeros_like(nan_entry)
+    for start, n in zip(ti.tile_starts.tolist(), tile_live.tolist()):
+        in_prefix[start:start + n] = True
+    assert is_nan[:, 5].any()
+    assert torch.equal(is_nan[:, 5], nan_entry & in_prefix)
+
+
+def test_subtile_live_and_work_order():
+    case = random_case(n=160, H=40, W=100, seed=4)
+    tile_x = 48
+    ti = rc.tile_inputs(*_torch_args(case)[:9], tile_x=tile_x)
+    out = rc.composite_fwd(ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx,
+                           ti.sy, tile_x)
+    live = rc.subtile_live(out, ti.counts, tile_x)
+    assert live.dtype == torch.int32 and tuple(live.shape) == (ti.counts.shape[0], 3)
+    last = out[:, 6].numpy().reshape(-1, 16, tile_x)
+    for t in range(live.shape[0]):
+        for s in range(3):
+            want = min(int(last[t, :, 16 * s:16 * s + 16].max()), int(ti.counts[t]))
+            assert int(live[t, s]) == want, (t, s)
+    assert len(np.unique(live.numpy())) > 3  # the sub-tiles differ
+    order = rc.work_order(live)
+    assert order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(live.numel()))
+    depth = live.reshape(-1)[order.long()]
+    assert (depth[:-1] >= depth[1:]).all()
+    for d in depth.unique():  # ties keep index order
+        idx = order[depth == d]
+        assert (idx[:-1] < idx[1:]).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile_x", [16, 64])
 def test_kernel_matches_plain_on_card(tile_x):

@@ -18,22 +18,31 @@
 // last_contrib is 1 + the index of the last entry that contributed. These are
 // the rows the backward kernel reads (OUT_ROWS layout of the JAX package).
 //
-// What bounds it on an H100: operations. Each (entry, pixel) pair costs ~16
-// FP32 operations and one exp (the special-function unit runs at a quarter
-// of the FP32 rate), while each entry's 40-byte row is read once per tile
-// and shared by up to 1024 pixels, so the bytes are ~100x below the
-// operation bound at the bench scene.
+// What bounds it on an H100: issue slots. Each (entry, pixel) pair costs ~15
+// FP32 instructions and an expf (~11 slots), every product and sum rounded
+// on its own so that the result is bit-equal to the plain version; each
+// entry's 40-byte row is read once per block and broadcast to its pixels,
+// so bytes are ~100x below that. When a block was a whole tile and every
+// warp evaluated every entry, three things kept it from that bound: the
+// deepest tiles (3,393 entries against a mean of ~395 at the bench frame)
+// each ran on one SM while the others idled; most (entry, warp) pairs were
+// evaluated for pixels far outside the splat; ten scalar shared-memory reads
+// per entry and warp.
 //
-// What the design does about it: one block per tile, one thread per pixel
-// (16 x tile_x <= 1024 threads). The block walks the tile's entries in
-// batches of blockDim: each thread gathers one entry's row into shared
-// memory (struct-of-arrays, so the stores are bank-conflict free and the
-// reads are broadcasts), then every thread composites the batch in order for
-// its pixel, in registers, with no per-pair memory traffic. A thread stops
-// at its own saturation point; the block leaves the tile as soon as every
-// pixel is done (__syncthreads_count), so saturated tails cost no batches.
-// All arithmetic is float32, without fused multiply-adds; the alpha of an
-// (entry, pixel) pair comes from composite_common.cuh, which K2 shares.
+// What the design does about it:
+// - One block per 16 x 16 sub-tile (256 threads, one per pixel, warps on 8 x
+//   4 patches), so a deep tile spreads over tile_x / 16 SMs, a warp's pixels
+//   saturate together, and the early exit (__syncthreads_count) votes per
+//   sub-tile. Blocks take the sub-tiles in the order the wrapper passes,
+//   deepest tile first, so the shallow ones fill the tail.
+// - The block stages a batch of 256 entry rows in shared memory, 12 floats a
+//   row: the row and a box around the splat outside which alpha < 1/255
+//   (composite_common.cuh: entry_extent). A warp ballots which entries' boxes
+//   meet its patch and walks only those, reading each row back as two float4
+//   broadcasts (three where the pair contributes). A skipped pair is one the
+//   alpha test would have skipped, so the output is unchanged, bit for bit.
+// All arithmetic of a pair is float32 without fused multiply-adds; its alpha
+// comes from composite_common.cuh, which K2 shares.
 
 #include "composite_common.cuh"
 
@@ -41,21 +50,21 @@ namespace {
 
 using namespace tinysplat;
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kSubThreads, 4)
 composite_fwd_kernel(const float* __restrict__ table, int sentinel,
                      const int* __restrict__ entry_rank, long long n_entries,
                      const int* __restrict__ tile_starts,
                      const int* __restrict__ counts,
                      const int* __restrict__ sx, const int* __restrict__ sy,
-                     int tile_x, float* __restrict__ out) {
-  extern __shared__ float batch[];  // kCols rows of blockDim.x floats
-  const int t = blockIdx.x;
+                     int tile_x, int n_sub, const int* __restrict__ order,
+                     float* __restrict__ out) {
+  __shared__ __align__(16) float batch[kSubThreads * kRowStride];
+  const float4* rows = reinterpret_cast<const float4*>(batch);
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const float px = static_cast<float>(sx[t] + tid % tile_x);
-  const float py = static_cast<float>(sy[t] + tid / tile_x);
-  const int start = tile_starts[t];
-  const int count = counts[t];
+  const int lane = tid & 31;
+  const SubTilePixel me = sub_tile_pixel(order, n_sub, sx, sy, tile_x);
+  const int start = tile_starts[me.t];
+  const int count = counts[me.t];
 
   float T = 1.0f;
   float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, c3 = 0.0f;
@@ -63,49 +72,53 @@ composite_fwd_kernel(const float* __restrict__ table, int sentinel,
   int last_contrib = 0;
   int done = 0;
 
-  for (int base = 0; base < count; base += nthreads) {
+  for (int base = 0; base < count; base += kSubThreads) {
     // Barrier + vote: the previous batch is fully read before it is
-    // overwritten, and a tile whose pixels are all done stops here.
-    if (__syncthreads_count(done) == nthreads) break;
-    const int e = base + tid;
-    if (e < count) {
+    // overwritten, and a sub-tile whose pixels are all done stops here.
+    if (__syncthreads_count(done) == kSubThreads) break;
+    if (base + tid < count) {
       // Out-of-range ids and slots read the zero sentinel (never a fault).
-      const int row = table_row(entry_rank, n_entries, static_cast<long long>(start) + e,
-                                sentinel);
-      const float* src = table + static_cast<size_t>(row) * kCols;
-#pragma unroll
-      for (int k = 0; k < kCols; ++k) batch[k * nthreads + tid] = src[k];
+      stage_row(table, entry_rank, n_entries, static_cast<long long>(start) + base + tid,
+                sentinel, batch + tid * kRowStride);
     }
     __syncthreads();
-    if (done) continue;
-    const int nb = min(nthreads, count - base);
-    for (int j = 0; j < nb; ++j) {
-      const float dx = px - batch[0 * nthreads + j];
-      const float dy = py - batch[1 * nthreads + j];
-      const EntryAlpha ea = entry_alpha(dx, dy, batch[2 * nthreads + j],
-                                        batch[3 * nthreads + j], batch[4 * nthreads + j],
-                                        batch[5 * nthreads + j]);
-      if (ea.keep) {
-        const float alpha = ea.alpha;
-        const float next_T = mul_rn(T, 1.0f - alpha);
-        if (next_T <= kTEps) {
-          done = 1;
-          break;
+    const int nb = min(kSubThreads, count - base);
+    // The warp walks, front to back, only the entries whose box meets its
+    // patch (a ballot over 32 entries at a time); a lane that is done idles.
+    for (int w0 = 0; w0 < nb; w0 += 32) {
+      if (__all_sync(kFull, done)) break;
+      const int e = w0 + lane;
+      unsigned todo = __ballot_sync(kFull, e < nb && !misses_patch(rows[3 * e], me.wx0, me.wy0));
+      while (todo != 0u && !done) {
+        const int j = w0 + __ffs(todo) - 1;
+        todo &= todo - 1u;
+        const float4 r0 = rows[3 * j];
+        const float4 r1 = rows[3 * j + 1];
+        const EntryAlpha ea = entry_alpha(me.px - r0.x, me.py - r0.y, r1.x, r1.y, r1.z, r1.w);
+        if (ea.keep) {
+          const float alpha = ea.alpha;
+          const float next_T = mul_rn(T, 1.0f - alpha);
+          if (next_T <= kTEps) {
+            done = 1;
+            n_contrib = base + j;
+            break;
+          }
+          const float4 r2 = rows[3 * j + 2];
+          const float w = mul_rn(alpha, T);
+          c0 = add_rn(c0, mul_rn(w, r2.x));
+          c1 = add_rn(c1, mul_rn(w, r2.y));
+          c2 = add_rn(c2, mul_rn(w, r2.z));
+          c3 = add_rn(c3, mul_rn(w, r2.w));
+          T = next_T;
+          last_contrib = base + j + 1;
         }
-        const float w = mul_rn(alpha, T);
-        c0 = add_rn(c0, mul_rn(w, batch[6 * nthreads + j]));
-        c1 = add_rn(c1, mul_rn(w, batch[7 * nthreads + j]));
-        c2 = add_rn(c2, mul_rn(w, batch[8 * nthreads + j]));
-        c3 = add_rn(c3, mul_rn(w, batch[9 * nthreads + j]));
-        T = next_T;
-        last_contrib = base + j + 1;
       }
-      n_contrib = base + j + 1;
     }
+    if (!done) n_contrib = base + nb;
   }
 
-  const size_t p = static_cast<size_t>(nthreads);
-  float* o = out + static_cast<size_t>(t) * kOutRows * p + tid;
+  const size_t p = static_cast<size_t>(kTileH) * tile_x;
+  float* o = out + static_cast<size_t>(me.t) * kOutRows * p + me.pix;
   o[0 * p] = c0;
   o[1 * p] = c1;
   o[2 * p] = c2;
@@ -120,15 +133,20 @@ composite_fwd_kernel(const float* __restrict__ table, int sentinel,
 
 // table (n_rows, 10) f32 with the zero sentinel as its last row;
 // entry_rank (n_entries,) int32; tile_starts, counts, sx, sy (num_tiles,) int32;
-// out (num_tiles, 8, 16 * tile_x) f32. Returns cudaGetLastError().
+// sub_x: the sub-tile width the caller sized `order` for (kSubX, else
+// cudaErrorInvalidValue); order (num_tiles * tile_x / sub_x,) int32: the
+// sub-tile work items (tile * tile_x / sub_x + sub), in the order blocks take
+// them; out (num_tiles, 8, 16 * tile_x) f32. Returns cudaGetLastError().
 extern "C" int composite_fwd(const float* table, int n_rows, const int* entry_rank,
                              long long n_entries, const int* tile_starts, const int* counts,
-                             const int* sx, const int* sy, int num_tiles,
-                             int tile_x, float* out, void* stream) {
+                             const int* sx, const int* sy, int num_tiles, int tile_x,
+                             int sub_x, const int* order, float* out, void* stream) {
+  if (sub_x != tinysplat::kSubX) return static_cast<int>(cudaErrorInvalidValue);
   if (num_tiles == 0) return static_cast<int>(cudaSuccess);
-  const int threads = tinysplat::kTileH * tile_x;
-  const size_t smem = static_cast<size_t>(tinysplat::kCols) * threads * sizeof(float);
-  composite_fwd_kernel<<<num_tiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      table, n_rows - 1, entry_rank, n_entries, tile_starts, counts, sx, sy, tile_x, out);
+  const int n_sub = tile_x / tinysplat::kSubX;
+  composite_fwd_kernel<<<num_tiles * n_sub, tinysplat::kSubThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      table, n_rows - 1, entry_rank, n_entries, tile_starts, counts, sx, sy, tile_x, n_sub,
+      order, out);
   return static_cast<int>(cudaGetLastError());
 }

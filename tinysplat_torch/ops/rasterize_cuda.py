@@ -33,6 +33,7 @@ Every kernel wrapper launches its kernel on CUDA tensors (counted in its
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -44,7 +45,13 @@ from .rasterize_dense import ALPHA_EPS, ALPHA_MAX, T_EPS
 TILE = 16  # tile height in pixels
 OUT_ROWS = 8  # [c0..c3, T_final, n_contrib, last_contrib, 0]
 TABLE_COLS = 10  # [x, y, conic a, b, c, opacity, c0..c3]
-MAX_THREADS = 1024  # K1 and K2 run one thread per pixel: 16 * tile_x <= 1024
+# K1 and K2 run one block per 16 x SUB_X sub-tile of a tile, one thread per
+# pixel; a warp's 32 pixels are an 8 x 4 patch (WARP_FOOTPRINT, width x height).
+# The wrappers pass SUB_X to the kernels, which refuse a launch unless it is
+# the width they were built with (csrc/composite_common.cuh: kSubX).
+SUB_X = 16
+SUB_THREADS = TILE * SUB_X
+WARP_FOOTPRINT = (8, 4)
 GRAD_REDUCE = ("scatter", "sorted", "segment", "mxu")
 # The plain version walks blocks of tiles holding about this many pixels at
 # a time (so it fits in memory at any image size), and tests every this many
@@ -110,8 +117,33 @@ def _check_composite_args(table, entry_rank, tile_starts, counts, sx, sy, tile_x
             raise ValueError(f"{name} is on {x.device}, table on {dev}")
         if name != "entry_rank" and x.shape[0] != nt:
             raise ValueError(f"{name} has {x.shape[0]} tiles, tile_starts {nt}")
-    if tile_x <= 0 or tile_x % 16:
-        raise ValueError(f"tile_x must be a positive multiple of 16, got {tile_x}")
+    subtiles_per_tile(tile_x)
+
+
+def subtiles_per_tile(tile_x: int) -> int:
+    """The number of 16 x SUB_X sub-tile blocks K1 and K2 cut a 16 x tile_x
+    tile into; raises unless tile_x is a positive multiple of SUB_X."""
+    if tile_x <= 0 or tile_x % SUB_X:
+        raise ValueError(f"tile_x must be a positive multiple of the {SUB_X}-pixel "
+                         f"sub-tile width, got {tile_x}")
+    return tile_x // SUB_X
+
+
+def subtile_live(out: torch.Tensor, counts: torch.Tensor, tile_x: int) -> torch.Tensor:
+    """(num_tiles, tile_x // SUB_X) int32: each sub-tile's live prefix in the
+    backward, the max last_contrib of its pixels (at most the tile's count).
+    No pixel keeps an entry at or past its last_contrib, so the prefix is
+    exact."""
+    nt, ns = out.shape[0], subtiles_per_tile(tile_x)
+    last = out[:, 6].reshape(nt, TILE, ns, SUB_X).amax(dim=(1, 3))
+    return torch.minimum(last.to(torch.int32), counts[:, None])
+
+
+def work_order(depth: torch.Tensor) -> torch.Tensor:
+    """Sub-tile work items (flat index tile * subtiles + sub), deepest first:
+    the int32 order that sorts ``depth`` descending, ties in index order.
+    Computed on the device; the kernels' block b takes item order[b]."""
+    return torch.argsort(depth.reshape(-1), descending=True, stable=True).to(torch.int32)
 
 
 def composite_fwd(table, entry_rank, tile_starts, counts, sx, sy, tile_x: int) -> torch.Tensor:
@@ -125,16 +157,15 @@ def composite_fwd(table, entry_rank, tile_starts, counts, sx, sy, tile_x: int) -
         return composite_fwd_plain(table, entry_rank, tile_starts, counts, sx, sy, tile_x)
     if table.device.type != "cuda":
         raise ValueError(f"composite_fwd runs on CUDA or CPU tensors, not {table.device}")
-    p = TILE * tile_x
-    if p > MAX_THREADS:
-        raise ValueError(f"K1 runs one thread per pixel: tile_x {tile_x} gives {p} "
-                         f"threads, more than {MAX_THREADS}")
     args = [x.contiguous() for x in (table, entry_rank, tile_starts, counts, sx, sy)]
     num_tiles = tile_starts.shape[0]
-    out = torch.empty((num_tiles, OUT_ROWS, p), dtype=torch.float32, device=table.device)
+    out = torch.empty((num_tiles, OUT_ROWS, TILE * tile_x), dtype=torch.float32,
+                      device=table.device)
+    order = work_order(args[3][:, None].expand(num_tiles, subtiles_per_tile(tile_x)))
     _launch("composite_fwd", table.device, args[0].data_ptr(), args[0].shape[0],
             args[1].data_ptr(), args[1].shape[0], args[2].data_ptr(), args[3].data_ptr(),
-            args[4].data_ptr(), args[5].data_ptr(), num_tiles, tile_x, out.data_ptr())
+            args[4].data_ptr(), args[5].data_ptr(), num_tiles, tile_x, SUB_X,
+            order.data_ptr(), out.data_ptr())
     composite_fwd.launches += 1
     return out
 
@@ -145,8 +176,9 @@ composite_fwd.launches = 0
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The C signature of each kernel's entry point; the CUDA stream comes last.
 _SIGNATURES = {
-    "composite_fwd": (_P, _I, _P, _LL, _P, _P, _P, _P, _I, _I, _P, _P),
-    "composite_bwd": (_P, _I, _P, _LL, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
+    "composite_fwd": (_P, _I, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "composite_bwd": (_P, _I, _P, _LL, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P,
+                      _P),
     "segsum": (_P, _I, _P, _I, _P, _P),
 }
 
@@ -174,9 +206,7 @@ def composite_fwd_plain(table, entry_rank, tile_starts, counts, sx, sy,
     n_slots = entry_rank.shape[0]
     pix = torch.arange(p, device=dev)
     lx, ly = pix % tile_x, pix // tile_x
-    block = max(1, _PLAIN_BLOCK_ELEMS // p)
-    for t0 in range(0, num_tiles, block):
-        t1 = min(t0 + block, num_tiles)
+    for t0, t1 in _plain_blocks(num_tiles, p):
         start = tile_starts[t0:t1].long()
         cnt = counts[t0:t1].long()
         px = (sx[t0:t1, None] + lx).to(torch.float32)  # (B, P)
@@ -235,6 +265,12 @@ def composite_bwd(table, entry_rank, tile_starts, counts, sx, sy, out, gout,
     Launches K2 on CUDA tensors (``composite_bwd.launches`` counts the
     launches) and runs ``composite_bwd_plain`` on CPU tensors. Rows past
     each tile's live prefix are zero.
+
+    K2 runs one block per sub-tile, deepest live prefix first
+    (``subtile_live``, ``work_order``); with several sub-tiles a tile's
+    blocks write their partial rows into a (subtiles, len(entry_rank), 10)
+    scratch buffer and the tile's last block to finish folds them in sub-tile
+    order, so two launches on the same inputs give the same bytes.
     """
     _check_bwd_args(table, entry_rank, tile_starts, counts, sx, sy, out, gout, tile_x)
     if table.device.type == "cpu":
@@ -242,23 +278,72 @@ def composite_bwd(table, entry_rank, tile_starts, counts, sx, sy, out, gout,
                                    gout, tile_x)
     if table.device.type != "cuda":
         raise ValueError(f"composite_bwd runs on CUDA or CPU tensors, not {table.device}")
-    p = TILE * tile_x
-    if p > MAX_THREADS:
-        raise ValueError(f"K2 runs one thread per pixel: tile_x {tile_x} gives {p} "
-                         f"threads, more than {MAX_THREADS}")
     args = [x.contiguous() for x in (table, entry_rank, tile_starts, counts, sx, sy, out, gout)]
-    num_tiles = tile_starts.shape[0]
-    grads = torch.zeros((entry_rank.shape[0], TABLE_COLS), dtype=torch.float32,
-                        device=table.device)
+    num_tiles, n_slots = tile_starts.shape[0], entry_rank.shape[0]
+    ns = subtiles_per_tile(tile_x)
+    grads = torch.zeros((n_slots, TABLE_COLS), dtype=torch.float32, device=table.device)
+    live = subtile_live(args[6], args[3], tile_x).contiguous()
+    order = work_order(live)
+    scratch = (torch.empty((ns, n_slots, TABLE_COLS), dtype=torch.float32, device=table.device)
+               if ns > 1 else grads)
+    tile_done = torch.zeros(num_tiles, dtype=torch.int32, device=table.device)
     _launch("composite_bwd", table.device, args[0].data_ptr(), args[0].shape[0],
-            args[1].data_ptr(), args[1].shape[0], args[2].data_ptr(), args[3].data_ptr(),
-            args[4].data_ptr(), args[5].data_ptr(), num_tiles, tile_x, args[6].data_ptr(),
-            args[7].data_ptr(), grads.data_ptr())
+            args[1].data_ptr(), n_slots, args[2].data_ptr(), args[4].data_ptr(),
+            args[5].data_ptr(), num_tiles, tile_x, args[6].data_ptr(),
+            args[7].data_ptr(), SUB_X, live.data_ptr(), order.data_ptr(), scratch.data_ptr(),
+            tile_done.data_ptr(), grads.data_ptr())
     composite_bwd.launches += 1
     return grads
 
 
 composite_bwd.launches = 0
+
+
+def _plain_blocks(num_tiles: int, p: int):
+    """The (t0, t1) blocks of tiles the plain walks take at a time."""
+    block = max(1, _PLAIN_BLOCK_ELEMS // p)
+    return [(t0, min(t0 + block, num_tiles)) for t0 in range(0, num_tiles, block)]
+
+
+class _BwdBlock(NamedTuple):
+    """A block of tiles in the plain backward walk."""
+
+    start: torch.Tensor  # (B,) first slot of each tile
+    px: torch.Tensor  # (B, P) pixel centres
+    py: torch.Tensor
+    n_contrib: torch.Tensor  # (B, P)
+    live: torch.Tensor  # (B,) the tile's live prefix
+
+
+def _bwd_block(out, tile_starts, counts, sx, sy, tile_x: int, t0: int, t1: int) -> _BwdBlock:
+    pix = torch.arange(TILE * tile_x, device=out.device)
+    return _BwdBlock(
+        tile_starts[t0:t1].long(),
+        (sx[t0:t1, None] + pix % tile_x).to(torch.float32),
+        (sy[t0:t1, None] + pix // tile_x).to(torch.float32),
+        out[t0:t1, 5].long(),
+        torch.minimum(out[t0:t1, 6].amax(dim=1).long(), counts[t0:t1].long()))
+
+
+def _bwd_entry(table, entry_rank, blk: _BwdBlock, k: int):
+    """Entry k of every tile of a plain backward block: (ok: the tile's live
+    prefix holds it, slots, rows, dx, dy, alpha before and after the clamp,
+    kept: the pixels whose composite it entered). One elementwise op per
+    rounding, in K1's order, so the masks are K1's and K2's bit for bit."""
+    sentinel, n_slots = table.shape[0] - 1, entry_rank.shape[0]
+    ok = k < blk.live  # (B,)
+    slot = torch.clamp(blk.start + k, 0, n_slots - 1)
+    r = torch.where(ok, entry_rank[slot].long(), -1)
+    r = torch.where((r < 0) | (r > sentinel), sentinel, r)
+    row = table[r]  # (B, TABLE_COLS)
+    dx = blk.px - row[:, 0:1]
+    dy = blk.py - row[:, 1:2]
+    a, b, c = row[:, 2:3], row[:, 3:4], row[:, 4:5]
+    sigma = 0.5 * (a * dx * dx + c * dy * dy) + b * dx * dy
+    raw = row[:, 5:6] * torch.exp(-sigma)
+    alpha = torch.clamp(raw, max=ALPHA_MAX)
+    kept = (k < blk.n_contrib) & (sigma >= 0.0) & (alpha >= ALPHA_EPS)
+    return ok, slot, row, dx, dy, raw, alpha, kept
 
 
 def composite_bwd_plain(table, entry_rank, tile_starts, counts, sx, sy, out, gout,
@@ -268,50 +353,32 @@ def composite_bwd_plain(table, entry_rank, tile_starts, counts, sx, sy, out, gou
 
     Step k handles entry k of every tile in the block whose live prefix
     (the max of its pixels' last_contrib, at most its count) holds it. Per
-    pixel, every value is one elementwise op per rounding in K2's order, so
-    on the card the two differ only in the order of the pixel sums.
+    pixel, T and S are one elementwise op per rounding in K2's order (one
+    correctly rounded reciprocal r = 1 / (1 - alpha), then T r and alpha r),
+    so on the card the two differ only in the order of the pixel sums and
+    in K2's fused multiply-adds in the gradient terms.
     """
-    dev = table.device
     num_tiles = tile_starts.shape[0]
     p = TILE * tile_x
     n_slots = entry_rank.shape[0]
-    grads = torch.zeros((n_slots, TABLE_COLS), dtype=torch.float32, device=dev)
+    grads = torch.zeros((n_slots, TABLE_COLS), dtype=torch.float32, device=table.device)
     if num_tiles == 0 or n_slots == 0:
         return grads
-    sentinel = table.shape[0] - 1
-    pix = torch.arange(p, device=dev)
-    lx, ly = pix % tile_x, pix // tile_x
-    block = max(1, _PLAIN_BLOCK_ELEMS // p)
-    for t0 in range(0, num_tiles, block):
-        t1 = min(t0 + block, num_tiles)
-        start = tile_starts[t0:t1].long()
-        px = (sx[t0:t1, None] + lx).to(torch.float32)  # (B, P)
-        py = (sy[t0:t1, None] + ly).to(torch.float32)
+    for t0, t1 in _plain_blocks(num_tiles, p):
+        blk = _bwd_block(out, tile_starts, counts, sx, sy, tile_x, t0, t1)
         T = out[t0:t1, 4].clone()
-        n_contrib = out[t0:t1, 5].long()
-        live = torch.minimum(out[t0:t1, 6].amax(dim=1).long(), counts[t0:t1].long())
         g = gout[t0:t1, 0:4]  # (B, 4, P)
         S = gout[t0:t1, 4] * T
-        for k in range(int(live.max()) - 1, -1, -1):
-            ok = k < live  # (B,)
-            slot = torch.clamp(start + k, 0, n_slots - 1)
-            r = torch.where(ok, entry_rank[slot].long(), -1)
-            r = torch.where((r < 0) | (r > sentinel), sentinel, r)
-            row = table[r]  # (B, TABLE_COLS)
-            dx = px - row[:, 0:1]
-            dy = py - row[:, 1:2]
+        for k in range(int(blk.live.max()) - 1, -1, -1):
+            ok, slot, row, dx, dy, raw, alpha, kept = _bwd_entry(table, entry_rank, blk, k)
             a, b, c = row[:, 2:3], row[:, 3:4], row[:, 4:5]
-            sigma = 0.5 * (a * dx * dx + c * dy * dy) + b * dx * dy
-            raw = row[:, 5:6] * torch.exp(-sigma)
-            alpha = torch.clamp(raw, max=ALPHA_MAX)
-            kept = (k < n_contrib) & (sigma >= 0.0) & (alpha >= ALPHA_EPS)
-            om = 1.0 - alpha
-            t_before = T / om
+            r = torch.reciprocal(1.0 - alpha)
+            t_before = T * r
             w = alpha * t_before
             q = (row[:, 6:7] * g[:, 0] + row[:, 7:8] * g[:, 1] + row[:, 8:9] * g[:, 2]
                  + row[:, 9:10] * g[:, 3])
             qw = q * w
-            dsig = torch.where(kept & (raw < ALPHA_MAX), alpha / om * S - qw, 0.0)
+            dsig = torch.where(kept & (raw < ALPHA_MAX), alpha * r * S - qw, 0.0)
             S = torch.where(kept, S + qw, S)
             T = torch.where(kept, t_before, T)
             wk = torch.where(kept, w, 0.0)
@@ -328,6 +395,95 @@ def composite_bwd_plain(table, entry_rank, tile_starts, counts, sx, sy, out, gou
             sums[:, 5] = -(sums[:, 5] / torch.clamp(row[:, 5], min=1e-30))
             grads[slot[ok]] = sums[ok]
     return grads
+
+
+def warp_ids(tile_x: int) -> torch.Tensor:
+    """(16 * tile_x,) the warp of each pixel of a tile (row-major pixel
+    index) as K1 and K2 run them: WARP_FOOTPRINT patches, row by row."""
+    fw, fh = WARP_FOOTPRINT
+    pix = torch.arange(TILE * tile_x)
+    lx, ly = pix % tile_x, pix // tile_x
+    return (ly // fh) * (tile_x // fw) + lx // fw
+
+
+def entry_extent(table: torch.Tensor) -> torch.Tensor:
+    """(len(table), 2) float32 half-widths (ex, ey) of each table row's box,
+    outside which no pixel passes the alpha test: the box the kernels cull by
+    (``csrc/composite_common.cuh``: ``entry_extent``, whose comment gives the
+    margins), up to the rounding of its own float ops. -inf: no pixel passes
+    (opacity below 1/255 or NaN); +inf: no bound (a conic that is not
+    positive definite, or too thin to bound safely)."""
+    a, b, c, op = (table[:, k] for k in (2, 3, 4, 5))
+    det = a * c - b * b
+    trace = a + c
+    s2 = 2.0 * (torch.clamp(torch.log(255.0 * op), min=0.0) * 1.1 + 0.1) / det
+    ext = torch.stack([torch.sqrt(s2 * c) * 1.01 + 0.5, torch.sqrt(s2 * a) * 1.01 + 0.5], 1)
+    bounded = (a > 0) & (c > 0) & (det > 0) & (trace * trace < 1e4 * det)
+    ext = torch.where(bounded[:, None], ext, math.inf)
+    return torch.where((op >= ALPHA_EPS)[:, None], ext, -math.inf)
+
+
+def _stats(x: torch.Tensor) -> dict:
+    x = x.reshape(-1).to(torch.float64)
+    return {"mean": float(x.mean()), "p99": float(torch.quantile(x, 0.99)),
+            "max": float(x.max())}
+
+
+def composite_counts(table, entry_rank, tile_starts, counts, sx, sy, out,
+                     tile_x: int) -> dict:
+    """Work counters of one frame's compositing (plain torch; no kernel
+    runs): from K1's output ``out`` and the plain backward walk's keep masks.
+
+    pairs:          (entry, pixel) pairs. ``k1`` K1's walk (each pixel up to
+                    its stop); ``k2_pixel`` a pixel's own live prefix
+                    (min(last_contrib, count): the least any backward walks);
+                    ``k2_sub`` the backward walking each sub-tile's live
+                    prefix at every pixel; ``k1_box`` / ``k2_box`` the pairs
+                    of ``k1`` / ``k2_pixel`` whose pixel lies in the entry's
+                    box (``entry_extent``: the only ones the kernels need to
+                    evaluate); ``kept`` the pairs the alpha test keeps (K2's
+                    expensive ones, all inside the boxes).
+    warps:          (entry, warp) pairs of the WARP_FOOTPRINT warps of the
+                    sub-tiles: ``walked`` (a warp walks its sub-tile's live
+                    prefix) and ``kept`` (those with at least one kept pixel).
+    tile_entries /  entries walked per tile / per sub-tile: ``k1`` the most
+    sub_entries:    any of its pixels evaluates, ``k2`` its live prefix;
+                    mean, p99 and max of each.
+    """
+    _check_bwd_args(table, entry_rank, tile_starts, counts, sx, sy, out, out, tile_x)
+    nt, ns, p = tile_starts.shape[0], subtiles_per_tile(tile_x), TILE * tile_x
+    cnt = counts.long()[:, None]
+    k1_pixel = torch.minimum(out[:, 5].long() + 1, cnt)
+    k2_pixel = torch.minimum(out[:, 6].long(), cnt)
+
+    def per_sub(x):
+        return x.reshape(nt, TILE, ns, SUB_X).amax(dim=(1, 3))
+
+    k2_sub = per_sub(k2_pixel)
+    perm = torch.argsort(warp_ids(tile_x), stable=True).to(out.device)
+    k1_box = k2_box = kept_pairs = kept_warps = 0
+    for t0, t1 in _plain_blocks(nt, p):
+        # The walk goes to K1's depth, which is at least the live prefix;
+        # the keep mask is zero past the live prefix all the same.
+        k1_blk, k2_blk = k1_pixel[t0:t1], k2_pixel[t0:t1]
+        blk = _bwd_block(out, tile_starts, counts, sx, sy, tile_x, t0, t1)._replace(
+            live=k1_blk.amax(dim=1))
+        for k in range(int(blk.live.max()) if t1 > t0 else 0):
+            _, _, row, dx, dy, _, _, kept = _bwd_entry(table, entry_rank, blk, k)
+            ext = entry_extent(row)
+            inside = ~((dx.abs() > ext[:, 0:1]) | (dy.abs() > ext[:, 1:2]))
+            k1_box += int((inside & (k < k1_blk)).sum())
+            k2_box += int((inside & (k < k2_blk)).sum())
+            kept_pairs += int(kept.sum())
+            kept_warps += int(kept[:, perm].reshape(t1 - t0, -1, 32).any(dim=2).sum())
+    return {
+        "pairs": {"k1": int(k1_pixel.sum()), "k1_box": k1_box,
+                  "k2_pixel": int(k2_pixel.sum()), "k2_box": k2_box,
+                  "k2_sub": int(k2_sub.sum()) * SUB_THREADS, "kept": kept_pairs},
+        "warps": {"walked": int(k2_sub.sum()) * (SUB_THREADS // 32), "kept": kept_warps},
+        "tile_entries": {"k1": _stats(k1_pixel.amax(dim=1)), "k2": _stats(k2_pixel.amax(dim=1))},
+        "sub_entries": {"k1": _stats(per_sub(k1_pixel)), "k2": _stats(k2_sub)},
+    }
 
 
 def segsum(rows: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
