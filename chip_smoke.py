@@ -21,7 +21,8 @@ exits non-zero):
 5. Hold K2 (``composite_bwd``) and K3 (``segsum``) against their plain
    versions on phase 3's cases, with a numpy-drawn cotangent: per-entry rows
    and the per-splat rows of all four ``grad_reduce`` strategies; two K2
-   launches must give the same bytes (here and in phases 6 and 7).
+   launches must give the same bytes, and K3 must equal its plain version
+   bit for bit, twice (here and in phases 6 and 7).
 6. Train at full width: the bench scene, GT frames rendered from it at 4
    orbit cameras, training from dimmed opacities and perturbed colours. 10
    steps with ``grad_reduce="scatter"`` (K1 and K2 launch once per step; the
@@ -30,8 +31,9 @@ exits non-zero):
    timed at step 0's shapes, where the compositing work counters are printed
    (``composite_counts``: pairs walked, inside the splats' boxes and kept,
    (entry, warp) pairs with a kept pixel, entries per tile and per
-   sub-tile) and give K2's instruction bound; the step is broken down into
-   layers.
+   sub-tile) and give K2's instruction bound; the entry -> splat reduction
+   layer is timed under "mxu" (the sort, the bounds and K3) and "scatter";
+   the step is broken down into layers.
 7. The trainer at full width (``train_loop.Trainer``, ``"mxu"``): phase 6's
    start and views, densify every 4 steps up to step 8, an opacity reset and
    a checkpoint at step 8, the NaN guard every 4. tau_means is set so that
@@ -40,7 +42,7 @@ exits non-zero):
    1,048,576 and is redone. 12 steps (K1, K2, K3 once each per step); K1,
    K2 and K3 held against their plain versions at the last step's state,
    camera and budgets (the grown capacity, tiles up to 8192 deep), with the
-   counters, and K1 and K2 timed there; then a
+   counters, and K1, K2 and K3 timed there; then a
    fresh trainer from the step-8 checkpoint replays steps 9-12 and must
    equal the first run to 1e-5 x column max; 4 steps with pose_opt and
    app_opt; evaluate() on a held-out orbit view; a 3-step torch.profiler
@@ -228,13 +230,53 @@ def plain_reduce(rc, rows, entry_rank, n, strategy):
     of K3 (the other strategies are plain torch ops)."""
     if strategy != "mxu":
         return rc.reduce_entry_grads(rows, entry_rank, n, strategy)
-    return rc.segsum_plain(*rc.segsum_inputs(rows, entry_rank, n))
+    return rc.segsum_plain(rows, *rc.segsum_inputs(entry_rank, n))
+
+
+def same_bytes(torch, a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def compare_k3(torch, rc, rows, perm, bounds, label):
+    """K3 twice and its plain version on the same inputs; raises unless all
+    three are the same bytes."""
+    got = rc.segsum(rows, perm, bounds)
+    again = rc.segsum(rows, perm, bounds)
+    ref = rc.segsum_plain(rows, perm, bounds)
+    torch.cuda.synchronize()
+    if not (same_bytes(torch, got, ref) and same_bytes(torch, got, again)):
+        raise AssertionError(f"K3 is not bit-equal to its plain version, twice, on {label}")
+
+
+def k3_bound(rc, bounds):
+    """(bound ms, by, (S summed rows, M splats, longest run, dead splats))
+    of K3 at these bounds: each summed row read once with its perm entry,
+    each bound once, each output row written once; one add per summed
+    float."""
+    runs = bounds[1:] - bounds[:-1]
+    summed, m = int(bounds[-1] - bounds[0]), runs.shape[0]
+    bound, by = kernel_bound(summed * (rc.TABLE_COLS * 4 + 4) + nbytes(bounds),
+                             m * rc.TABLE_COLS * 4, summed * rc.TABLE_COLS)
+    return bound, by, (summed, m, int(runs.max()), int((runs == 0).sum()))
+
+
+def time_k3(rc, rows, perm, bounds, label, reps):
+    """K3's device time (median of ``reps``) beside its bound; printed."""
+    from tinysplat_torch.probes import timed_ms
+
+    ms = timed_ms(lambda: rc.segsum(rows, perm, bounds), reps, device_only=True)
+    bound, by, (summed, m, longest, dead) = k3_bound(rc, bounds)
+    print(f"  K3 at {label}: median {ms:.4f} ms over {reps} launches; bound {bound:.4f} ms "
+          f"by {by} ({bound / ms:.1%} of it; S {summed} rows into M {m} splats, longest run "
+          f"{longest}, dead splats {dead})", flush=True)
+    return ms, bound, by
 
 
 def compare_backward(torch, rc, ti, out, gout, label):
-    """K2 and K3 vs their plain versions on one case; raises past BWD_TOL.
+    """K2 vs its plain version on one case, raising past BWD_TOL, and K3 vs
+    its plain version bit for bit.
 
-    Returns (K2 max abs error, K3 max abs error, K2 rows)."""
+    Returns (K2 max abs error, K2 rows)."""
     args = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy)
     rows = rc.composite_bwd(*args, out, gout, ti.tile_x)
     again = rc.composite_bwd(*args, out, gout, ti.tile_x)
@@ -244,8 +286,7 @@ def compare_backward(torch, rc, ti, out, gout, label):
         raise AssertionError(f"two K2 launches on {label} gave different bytes")
     k2_err, k2_scaled = column_err(torch, rows, ref)
     n = ti.table.shape[0] - 1
-    gs, bounds = rc.segsum_inputs(rows, ti.entry_rank, n)
-    k3_err, k3_scaled = column_err(torch, rc.segsum(gs, bounds), rc.segsum_plain(gs, bounds))
+    compare_k3(torch, rc, rows, *rc.segsum_inputs(ti.entry_rank, n), label)
     reduced = {}
     for strategy in rc.GRAD_REDUCE:
         reduced[strategy] = column_err(
@@ -253,16 +294,15 @@ def compare_backward(torch, rc, ti, out, gout, label):
             plain_reduce(rc, ref, ti.entry_rank, n, strategy))[1]
     live = int((ref.abs().amax(dim=1) > 0).sum())
     print(f"  {label}: {live} live entry rows; K2 twice: same bytes; max|K2-plain| "
-          f"{k2_err:.3e} (scaled "
-          f"{k2_scaled:.3e}); max|K3-plain| {k3_err:.3e} (scaled {k3_scaled:.3e}); "
+          f"{k2_err:.3e} (scaled {k2_scaled:.3e}); K3 twice: bit-equal to plain; "
           f"per-splat rows, scaled error by strategy "
           f"{ {k: float(f'{v:.3e}') for k, v in reduced.items()} } (tol {BWD_TOL:g})",
           flush=True)
     if not torch.isfinite(rows).all():
         raise AssertionError(f"K2 wrote non-finite values on {label}")
-    if max([k2_scaled, k3_scaled, *reduced.values()]) > BWD_TOL:
+    if max([k2_scaled, *reduced.values()]) > BWD_TOL:
         raise AssertionError(f"K2/K3 disagree with their plain versions on {label}")
-    return k2_err, k3_err, rows
+    return k2_err, rows
 
 
 def random_cotangent(torch, out, seed):
@@ -453,6 +493,24 @@ def train_layers(torch, rc, tt, state, opt, cam, gt, cfg, step_ms):
     print(f"  layers sum {total:.3f} ms of a {step_ms:.3f} ms step", flush=True)
 
 
+def reduction_layers(rc, rows, entry_rank, n):
+    """The entry -> splat reduction layer at one step's rows, "mxu" (the
+    sort, the bounds and K3) and "scatter" (``index_add_``): device time
+    (``device_only``) and host-paced time, median of 20 each, and the sort
+    and bounds alone."""
+    from tinysplat_torch.probes import timed_ms
+
+    for strategy in ("mxu", "scatter"):
+        def fn():
+            return rc.reduce_entry_grads(rows, entry_rank, n, strategy)
+        fn()  # builds and warms the kernels
+        print(f"  reduction layer ({strategy}): device "
+              f"{timed_ms(fn, 20, device_only=True):.4f} ms, host-paced "
+              f"{timed_ms(fn, 20):.4f} ms", flush=True)
+    sort_ms = timed_ms(lambda: rc.segsum_inputs(entry_rank, n), 20, device_only=True)
+    print(f"  of which the sort and bounds (segsum_inputs): device {sort_ms:.4f} ms", flush=True)
+
+
 def write_bench_checkpoint(path, seed=0):
     """The bench scene as a JAX-layout checkpoint: model/* arrays of the
     compact live-splat snapshot (what save_checkpoint writes)."""
@@ -576,7 +634,9 @@ def trainer_phase(torch, rc, tt, Config, views, gts, serve_state, deg, bg):
         label = f"trainer step {tr.step}, {int(tr.state.num_live())} live in {tr.state.capacity}"
         fargs = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy, ti.tile_x)
         compare_kernel(torch, rc, fargs, label)
-        rows = compare_backward(torch, rc, ti, out, gout, label)[2]
+        rows = compare_backward(torch, rc, ti, out, gout, label)[1]
+        time_k3(rc, rows, *rc.segsum_inputs(ti.entry_rank, ti.table.shape[0] - 1),
+                "the trainer's last step", 10)
         counts = print_counts(rc, ti, out, label)
         bargs = fargs[:6] + (out, gout, ti.tile_x)
         k1_ms = timed_ms(lambda: rc.composite_fwd(*fargs), 10, device_only=True)
@@ -960,7 +1020,7 @@ def main() -> int:
         raise AssertionError(f"expected {MXU_STEPS} K3 launches, counted {mxu_launches}")
 
     # K2 and K3 at step 0's shapes: against the plain versions, timed.
-    k2_err, k3_err, rows0 = compare_backward(torch, rc, ti0, out0, gout0, "train step 0")
+    k2_err, rows0 = compare_backward(torch, rc, ti0, out0, gout0, "train step 0")
     bargs = (ti0.table, ti0.entry_rank, ti0.tile_starts, ti0.counts, ti0.sx, ti0.sy, out0,
              gout0, ti0.tile_x)
     k2_ms = timed_ms(lambda: rc.composite_bwd(*bargs), 20, device_only=True)
@@ -972,16 +1032,15 @@ def main() -> int:
     k2_flop_bound = kernel_bound(k2_in, nbytes(rows0), k2_pairs * FLOP_PER_PAIR)[0]
     k2_bound, k2_by = kernel_bound(k2_in, nbytes(rows0), k2_slots(counts0), SLOTS_PER_S)
     n0 = ti0.table.shape[0] - 1
-    gs0, bounds0 = rc.segsum_inputs(rows0, ti0.entry_rank, n0)
-    k3_ms = timed_ms(lambda: rc.segsum(gs0, bounds0), 20, device_only=True)
-    k3_plain_ms = timed_ms(lambda: rc.segsum_plain(gs0, bounds0), 3, device_only=True)
+    perm0, bounds0 = rc.segsum_inputs(ti0.entry_rank, n0)
+    k3_ms, k3_bound_ms, k3_by = time_k3(rc, rows0, perm0, bounds0, "step 0", 20)
+    k3_plain_ms = timed_ms(lambda: rc.segsum_plain(rows0, perm0, bounds0), 3,
+                           device_only=True)
+    # K3's function in one library call: index_add_ of the unsorted rows.
     ids0 = ti0.entry_rank.long()
     ids0 = torch.where((ids0 < 0) | (ids0 >= n0), n0, ids0)
     zero = torch.zeros((n0 + 1, rc.TABLE_COLS), device="cuda")
     k3_lib_ms = timed_ms(lambda: torch.index_add(zero, 0, ids0, rows0), 20, device_only=True)
-    summed = int(bounds0[-1] - bounds0[0])
-    k3_bound, k3_by = kernel_bound(summed * rc.TABLE_COLS * 4 + nbytes(bounds0),
-                                   n0 * rc.TABLE_COLS * 4, summed * rc.TABLE_COLS)
     print(f"  K2 at step 0: median {k2_ms:.4f} ms over 20 launches; plain version "
           f"{k2_plain_ms:.2f} ms; instruction bound {k2_bound:.4f} ms by {k2_by} "
           f"({k2_pairs} own-prefix pairs in boxes x {SLOTS_PER_WALKED_PAIR} + "
@@ -989,10 +1048,9 @@ def main() -> int:
           f"{k2_in + nbytes(rows0)} bytes); FLOP bound {k2_flop_bound:.4f} ms (the same pairs "
           f"x {FLOP_PER_PAIR}); {ti0.tiles_x * ti0.tiles_y} tiles, live prefix max "
           f"{int(live_t.max())} mean {float(live_t.float().mean()):.1f}", flush=True)
-    print(f"  K3 at step 0: median {k3_ms:.4f} ms over 20 launches; plain version "
-          f"{k3_plain_ms:.2f} ms; index_add_ on the unsorted rows {k3_lib_ms:.4f} ms; bound "
-          f"{k3_bound:.4f} ms by {k3_by} ({summed} rows into {n0} splats, longest run "
-          f"{int((bounds0[1:] - bounds0[:-1]).max())})", flush=True)
+    print(f"  K3 at step 0: plain version {k3_plain_ms:.2f} ms; index_add_ on the unsorted "
+          f"rows {k3_lib_ms:.4f} ms", flush=True)
+    reduction_layers(rc, rows0, ti0.entry_rank, n0)
 
     # Where a step's time goes (layers timed alone, CUDA events, median of 5).
     step_ms = statistics.median([ms for _, ms, _, _ in log[1:]])
@@ -1037,10 +1095,10 @@ def main() -> int:
         "source": "tinysplat_torch/csrc/segsum.cu",
         "replaces": "tinysplat_tpu/ops/rasterize_pallas.py:264",
         "launches": mxu_launches["segsum"],
-        "max_abs_err": k3_err,
+        "max_abs_err": 0.0,  # held bit for bit (compare_k3)
         "ms": k3_ms,
         "plain_ms": k3_plain_ms,
-        "bound_ms": k3_bound,
+        "bound_ms": k3_bound_ms,
         "bound_by": k3_by,
         "library_ms": k3_lib_ms,
     }, p1, p2]}

@@ -251,23 +251,84 @@ def test_reduce_entry_grads_sums_each_splat(grad_reduce):
 
 def test_segsum_plain_sums_runs_in_order():
     rows, _, _ = _random_rows(d=50)
+    perm = torch.from_numpy(np.random.default_rng(4).permutation(50).astype(np.int32))
 
-    def in_order(lo, hi):  # the kernel's order: one row at a time
+    def in_order(lo, hi):  # the kernel's order: one row at a time, through perm
         acc = torch.zeros(rc.TABLE_COLS)
-        for r in rows[lo:hi]:
-            acc = acc + r
+        for p in range(lo, hi):
+            acc = acc + rows[int(perm[p])]
         return acc
 
     before = rc.segsum.launches
     bounds = torch.tensor([0, 0, 3, 3, 10, 49, 50, 50], dtype=torch.int32)
-    got = rc.segsum(rows, bounds)
+    got = rc.segsum(rows, perm, bounds)
     assert rc.segsum.launches == before  # CPU tensors never reach the kernel
     for i in range(bounds.shape[0] - 1):
         assert torch.equal(got[i], in_order(int(bounds[i]), int(bounds[i + 1]))), i
     # Bounds past the rows are clamped, never read out of range.
-    clamped = rc.segsum(rows, torch.tensor([45, 60, 80], dtype=torch.int32))
+    clamped = rc.segsum(rows, perm, torch.tensor([45, 60, 80], dtype=torch.int32))
     assert torch.equal(clamped[0], in_order(45, 50))
     assert (clamped[1] == 0).all()
+
+
+def _gathered_segsum(gs, bounds):
+    """The segment loop over a gathered copy gs = rows[perm] (K3's plain
+    version before the kernel took the gather in)."""
+    n_rows = gs.shape[0]
+    b = bounds.long().clamp(0, n_rows)
+    lo = b[:-1]
+    length = torch.maximum(b[1:], lo) - lo
+    acc = gs.new_zeros((lo.shape[0], rc.TABLE_COLS))
+    for k in range(int(length.max()) if n_rows and lo.numel() else 0):
+        ok = (k < length)[:, None]
+        acc = torch.where(ok, acc + gs[torch.clamp(lo + k, max=n_rows - 1)], acc)
+    return acc
+
+
+def _spread_rows(d, seed):
+    """(d, 10) float32 rows of magnitudes 1e-3..1e3, so the order of the adds
+    shows in the low bits."""
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(size=(d, rc.TABLE_COLS)) * 10.0 ** rng.uniform(-3, 3, (d, 1))
+    return torch.from_numpy(rows.astype(np.float32))
+
+
+def test_segsum_plain_equals_the_gathered_loop():
+    """Empty runs, runs of 100+ rows, bounds below 0 and past D: bit for
+    bit the loop over rows[perm]."""
+    d = 400
+    rows = _spread_rows(d, 5)
+    perm = torch.from_numpy(np.random.default_rng(6).permutation(d).astype(np.int32))
+    bounds = torch.tensor([-7, 0, 0, 1, 130, 130, 131, 260, 399, 400, 450, 450, 600],
+                          dtype=torch.int32)
+    got = rc.segsum_plain(rows, perm, bounds)
+    ref = _gathered_segsum(rows[perm.long()], bounds)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert (got[[0, 1, 4, 9, 10, 11]] == 0).all()  # the empty and clamped runs
+    assert (got[[3, 6]] != 0).all()  # the runs of 129 rows
+
+
+def test_segsum_inputs_int32_sort_matches_int64():
+    """The int32 sort gives the permutation and bounds of a stable int64
+    sort, and "mxu" per-splat rows equal the gathered loop's bit for bit."""
+    d, n = 3000, 200
+    rng = np.random.default_rng(8)
+    ranks = rng.integers(-1, n, size=d).astype(np.int32)
+    ranks[rng.uniform(size=d) < 0.1] = n + 5
+    ranks[:150] = 17  # one splat with a run of 150+ rows
+    ranks_t = torch.from_numpy(ranks)
+    perm, bounds = rc.segsum_inputs(ranks_t, n)
+    assert perm.dtype == bounds.dtype == torch.int32
+    ids64 = ranks_t.long()
+    ids64 = torch.where((ids64 < 0) | (ids64 >= n), n, ids64)
+    sorted64, perm64 = torch.sort(ids64, stable=True)
+    bounds64 = torch.searchsorted(sorted64, torch.arange(n + 1))
+    assert torch.equal(perm.long(), perm64)
+    assert torch.equal(bounds.long(), bounds64)
+    rows = _spread_rows(d, 9)
+    got = rc.reduce_entry_grads(rows, ranks_t, n, "mxu")
+    ref = _gathered_segsum(rows[perm64], bounds64.to(torch.int32))
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
 def test_backward_argument_checks():
@@ -282,10 +343,17 @@ def test_backward_argument_checks():
     with pytest.raises(TypeError):
         rc.composite_bwd(ti.table, ti.entry_rank.long(), *args[2:], out, out, ti.tile_x)
     rows = torch.zeros((8, rc.TABLE_COLS))
+    perm, bounds = torch.arange(8, dtype=torch.int32), torch.zeros(3, dtype=torch.int32)
     with pytest.raises(TypeError):
-        rc.segsum(rows.double(), torch.zeros(3, dtype=torch.int32))
+        rc.segsum(rows.double(), perm, bounds)
     with pytest.raises(TypeError):
-        rc.segsum(rows, torch.zeros(3, dtype=torch.int64))
+        rc.segsum(rows, perm, bounds.long())
+    with pytest.raises(TypeError, match="perm"):
+        rc.segsum(rows, perm.long(), bounds)
+    with pytest.raises(ValueError, match="perm has 7 entries"):
+        rc.segsum(rows, perm[:7], bounds)
+    with pytest.raises(ValueError, match="perm is on meta"):
+        rc.segsum(rows, perm.to("meta"), bounds)
     with pytest.raises(ValueError, match="grad_reduce"):
         rc.reduce_entry_grads(rows, torch.zeros(8, dtype=torch.int32), 4, "atomic")
     with pytest.raises(ValueError, match="grad_reduce"):

@@ -8,7 +8,8 @@ Tolerances: K1 bit for bit (the same float32 ops in the same order); K2's
 per-entry rows to 1e-5 x the column's max |plain| (the masks are K1's bit
 for bit; only the order of the pixel sums and K2's fused multiply-adds in
 the gradient terms differ), and two K2 launches byte for byte; K3 bit for
-bit (it adds each run in the plain version's order). The probes: P1 bit for
+bit, and two launches byte for byte (it adds each run in the plain
+version's order, with no atomics). The probes: P1 bit for
 bit (it moves bits as integers); P2 per row, as ``op_costs.TOLERANCE``
 states with its reasons.
 """
@@ -155,21 +156,101 @@ def test_nan_opacity_matches_plain():
     assert float(((got - ref).abs() / scale).max()) <= 1e-5
 
 
+def _k3_bit_equal(rows, perm, bounds):
+    """K3 twice and its plain version on the same inputs: one launch each,
+    the same bytes every time."""
+    before = rc.segsum.launches
+    got = rc.segsum(rows, perm, bounds)
+    assert rc.segsum.launches == before + 1
+    again = rc.segsum(rows, perm, bounds)
+    ref = rc.segsum_plain(rows, perm, bounds)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    return got
+
+
 @pytest.mark.cuda
 def test_k3_matches_plain_and_every_reduction_agrees():
     ti, args, out, gout = _case(600, 64, 128, 64, seed=3)
     rows = rc.composite_bwd(*args, out, gout, 64)
     n = ti.table.shape[0] - 1
-    gs, bounds = rc.segsum_inputs(rows, ti.entry_rank, n)
-    before = rc.segsum.launches
-    got = rc.segsum(gs, bounds)
-    assert rc.segsum.launches == before + 1
-    assert torch.equal(got, rc.segsum_plain(gs, bounds))
+    perm, bounds = rc.segsum_inputs(ti.entry_rank, n)
+    _k3_bit_equal(rows, perm, bounds)
     ref = rc.reduce_entry_grads(rows, ti.entry_rank, n, "scatter")
     scale = ref.abs().amax(dim=0).clamp(min=1e-30)
     for strategy in rc.GRAD_REDUCE:
         red = rc.reduce_entry_grads(rows, ti.entry_rank, n, strategy)
         assert float(((red - ref).abs() / scale).max()) <= 1e-5, strategy
+
+
+def _k3_case(lengths, pads, seed):
+    """K3's inputs on the card for splats with the given run lengths and
+    ``pads`` pad entries, in a random entry order; rows of magnitudes
+    1e-3..1e3, so the order of the adds shows in the low bits."""
+    _need_card()
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(lengths)
+    m = len(lengths)
+    ids = np.concatenate([np.repeat(np.arange(m), lengths), np.full(pads, -1)])
+    ids = rng.permutation(ids).astype(np.int32)
+    rows = rng.normal(size=(len(ids), 10)) * 10.0 ** rng.uniform(-3, 3, (len(ids), 1))
+    rows = torch.as_tensor(rows, dtype=torch.float32, device="cuda")
+    perm, bounds = rc.segsum_inputs(torch.as_tensor(ids, device="cuda"), m)
+    return rows, perm, bounds
+
+
+def _clamped_case():
+    """Bounds below 0 and past D, and a random permutation."""
+    _need_card()
+    rng = np.random.default_rng(7)
+    d = 3000
+    rows = torch.as_tensor(rng.normal(size=(d, 10)), dtype=torch.float32, device="cuda")
+    perm = torch.as_tensor(rng.permutation(d), dtype=torch.int32, device="cuda")
+    bounds = np.sort(rng.integers(-200, d + 300, size=601))
+    return rows, perm, torch.as_tensor(bounds, dtype=torch.int32, device="cuda")
+
+
+def _lengths(seed, m, hi=4):
+    return np.random.default_rng(seed).integers(0, hi, size=m)
+
+
+# name -> K3 inputs. K3 runs a block per 256 splat ids, a thread per splat,
+# and a warp steps as long as its longest run (csrc/segsum.cu).
+K3_CASES = {
+    # runs of 700 and 1,500 rows beside short ones in the same warps
+    "long runs": lambda: _k3_case(
+        np.concatenate([[700], _lengths(1, 100), [1500], _lengths(2, 200)]), 50, 1),
+    # 256 splats of 5 rows: 1,280 rows in the first block, an odd run length
+    "a block of 1,280 rows": lambda: _k3_case(
+        np.concatenate([np.full(256, 5), _lengths(3, 512)]), 40, 2),
+    "all-dead blocks": lambda: _k3_case(
+        np.concatenate([_lengths(4, 256), np.zeros(512, int), _lengths(5, 256)]), 30, 3),
+    "M not a multiple of 256": lambda: _k3_case(_lengths(6, 1000), 100, 4),
+    "M = 1": lambda: _k3_case([37], 5, 5),
+    "only pad rows": lambda: _k3_case(np.zeros(500, int), 300, 6),
+    "clamped bounds": _clamped_case,
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(K3_CASES))
+def test_k3_bit_equal_to_plain(name):
+    rows, perm, bounds = K3_CASES[name]()
+    got = _k3_bit_equal(rows, perm, bounds)
+    if name == "only pad rows":
+        assert (got == 0).all()
+
+
+@pytest.mark.cuda
+def test_k3_rejects_unaligned_rows():
+    _need_card()
+    flat = torch.zeros(1 + 8 * 10, device="cuda")
+    rows = flat[1:].view(8, 10)  # contiguous, 4 bytes past an 8-byte boundary
+    perm = torch.arange(8, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="8-byte boundary"):
+        rc.segsum(rows, perm, torch.tensor([0, 8], dtype=torch.int32, device="cuda"))
 
 
 @pytest.mark.cuda

@@ -23,7 +23,8 @@ The backward (``loss.backward()`` reaches it through ``composite_tiles``, a
    prefix.
 5. ``reduce_entry_grads``: per-entry rows -> per-splat rows, by one of the
    JAX package's four ``grad_reduce`` strategies; ``"mxu"`` sorts by id and
-   sums each splat's run with K3 (``csrc/segsum.cu``, ``segsum``).
+   sums each splat's run with K3 (``csrc/segsum.cu``, ``segsum``), which
+   reads the rows through the sort's permutation.
 6. Autograd carries the table gradient back through the depth-order
    permutation, projection, SH and the opacity sigmoid.
 
@@ -179,7 +180,7 @@ _SIGNATURES = {
     "composite_fwd": (_P, _I, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "composite_bwd": (_P, _I, _P, _LL, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                       _P),
-    "segsum": (_P, _I, _P, _I, _P, _P),
+    "segsum": (_P, _I, _P, _P, _I, _P, _P),
 }
 
 
@@ -486,10 +487,11 @@ def composite_counts(table, entry_rank, tile_starts, counts, sx, sy, out,
     }
 
 
-def segsum(rows: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
-    """Segment sums: out[i] = rows[bounds[i]:bounds[i + 1]].sum(0), for
-    (D, 10) float32 ``rows`` and (M + 1,) int32 nondecreasing ``bounds``
-    (clamped to [0, D]); returns (M, 10).
+def segsum(rows: torch.Tensor, perm: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """Segment sums through a permutation: out[i] = the sum of rows[perm[p]]
+    over p in [bounds[i], bounds[i + 1]), added in increasing p, for (D, 10)
+    float32 ``rows``, (D,) int32 ``perm`` and (M + 1,) int32 nondecreasing
+    ``bounds`` (clamped to [0, D]; perm entries to [0, D)); returns (M, 10).
 
     Launches K3 on CUDA tensors (``segsum.launches`` counts the launches)
     and runs ``segsum_plain`` on CPU tensors.
@@ -497,20 +499,27 @@ def segsum(rows: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
     if rows.dim() != 2 or rows.shape[1] != TABLE_COLS or rows.dtype != torch.float32:
         raise TypeError(f"rows must be float32 (D, {TABLE_COLS}), got {rows.dtype} "
                         f"{tuple(rows.shape)}")
+    if perm.dtype != torch.int32 or perm.dim() != 1:
+        raise TypeError(f"perm must be a 1-D int32 tensor, got {perm.dtype} {tuple(perm.shape)}")
+    if perm.shape[0] != rows.shape[0]:
+        raise ValueError(f"perm has {perm.shape[0]} entries, rows {rows.shape[0]}")
     if bounds.dtype != torch.int32 or bounds.dim() != 1 or bounds.shape[0] < 1:
         raise TypeError(f"bounds must be a non-empty 1-D int32 tensor, got {bounds.dtype} "
                         f"{tuple(bounds.shape)}")
-    if bounds.device != rows.device:
-        raise ValueError(f"bounds is on {bounds.device}, rows on {rows.device}")
+    for name, x in (("perm", perm), ("bounds", bounds)):
+        if x.device != rows.device:
+            raise ValueError(f"{name} is on {x.device}, rows on {rows.device}")
     if rows.device.type == "cpu":
-        return segsum_plain(rows, bounds)
+        return segsum_plain(rows, perm, bounds)
     if rows.device.type != "cuda":
         raise ValueError(f"segsum runs on CUDA or CPU tensors, not {rows.device}")
-    rows, bounds = rows.contiguous(), bounds.contiguous()
+    rows, perm, bounds = rows.contiguous(), perm.contiguous(), bounds.contiguous()
+    if rows.data_ptr() % 8:
+        raise ValueError("rows must start on an 8-byte boundary (K3 reads 8-byte pieces)")
     m = bounds.shape[0] - 1
     out = torch.empty((m, TABLE_COLS), dtype=torch.float32, device=rows.device)
-    _launch("segsum", rows.device, rows.data_ptr(), rows.shape[0], bounds.data_ptr(), m,
-            out.data_ptr())
+    _launch("segsum", rows.device, rows.data_ptr(), rows.shape[0], perm.data_ptr(),
+            bounds.data_ptr(), m, out.data_ptr())
     segsum.launches += 1
     return out
 
@@ -518,10 +527,10 @@ def segsum(rows: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
 segsum.launches = 0
 
 
-def segsum_plain(rows: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+def segsum_plain(rows: torch.Tensor, perm: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
     """K3 in plain PyTorch: every segment adds its rows in sorted order,
-    step k adding the k-th row of every segment still that long, so on the
-    card the two agree bit for bit."""
+    step k adding row perm[bounds[i] + k] of every segment i still that
+    long, so on the card the two agree bit for bit."""
     n_rows = rows.shape[0]
     b = bounds.long().clamp(0, n_rows)
     lo = b[:-1]
@@ -529,9 +538,10 @@ def segsum_plain(rows: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
     acc = rows.new_zeros((lo.shape[0], TABLE_COLS))
     if n_rows == 0 or lo.numel() == 0:
         return acc
+    src = perm.long().clamp(0, n_rows - 1)
     for k in range(int(length.max())):
         ok = (k < length)[:, None]
-        acc = torch.where(ok, acc + rows[torch.clamp(lo + k, max=n_rows - 1)], acc)
+        acc = torch.where(ok, acc + rows[src[torch.clamp(lo + k, max=n_rows - 1)]], acc)
     return acc
 
 
@@ -544,12 +554,14 @@ def reduce_entry_grads(rows: torch.Tensor, entry_rank: torch.Tensor, n: int,
     ``grad_reduce`` keeps the JAX package's four names:
       'scatter' — ``index_add_`` in slot order;
       'sorted'  — a stable sort by rank, then ``index_add_`` in sorted order;
-      'segment' — the sort, a cumulative sum and boundary differences (the
-                  cumulative sum runs in float64: in float32 its rounding
-                  grows with the running total, not with the segment);
-      'mxu'     — the sort, a gather and the segment-sum kernel K3
-                  (``segsum``); the name is the JAX package's, whose kernel
-                  put the sums on the TPU's matrix unit.
+      'segment' — the sort, a gather, a cumulative sum and boundary
+                  differences (the cumulative sum runs in float64: in float32
+                  its rounding grows with the running total, not with the
+                  segment);
+      'mxu'     — the sort and the segment-sum kernel K3 (``segsum``), which
+                  gathers the rows through the sort's permutation itself; the
+                  name is the JAX package's, whose kernel put the sums on the
+                  TPU's matrix unit.
     """
     if grad_reduce not in GRAD_REDUCE:
         raise ValueError(f"grad_reduce must be one of {GRAD_REDUCE}, got {grad_reduce!r}")
@@ -559,27 +571,30 @@ def reduce_entry_grads(rows: torch.Tensor, entry_rank: torch.Tensor, n: int,
     if grad_reduce == "sorted":
         sorted_ids, perm = torch.sort(_splat_ids(entry_rank, n), stable=True)
         return rows.new_zeros((n + 1, TABLE_COLS)).index_add_(0, sorted_ids, rows[perm])[:n]
-    gs, bounds = segsum_inputs(rows, entry_rank, n)
+    perm, bounds = segsum_inputs(entry_rank, n)
     if grad_reduce == "segment":
-        csum = torch.cat([gs.new_zeros((1, TABLE_COLS), dtype=torch.float64),
-                          torch.cumsum(gs.double(), dim=0)])
+        csum = torch.cat([rows.new_zeros((1, TABLE_COLS), dtype=torch.float64),
+                          torch.cumsum(rows[perm].double(), dim=0)])
         b = bounds.long()
         return (csum[b[1:]] - csum[b[:-1]]).float()
-    return segsum(gs, bounds)
+    return segsum(rows, perm, bounds)
 
 
 def _splat_ids(entry_rank: torch.Tensor, n: int) -> torch.Tensor:
-    """Entry ranks as int64 splat ids; pads and out-of-range ranks -> n."""
-    ids = entry_rank.long()
+    """Entry ranks as int32 splat ids; pads and out-of-range ranks -> n."""
+    ids = entry_rank.to(torch.int32)
     return torch.where((ids < 0) | (ids >= n), n, ids)
 
 
-def segsum_inputs(rows: torch.Tensor, entry_rank: torch.Tensor, n: int):
-    """K3's inputs: the rows in stable id-sorted order and the (n + 1,) int32
-    run bounds of splat ids 0..n-1 (the pads' run, id n, is left out)."""
+def segsum_inputs(entry_rank: torch.Tensor, n: int):
+    """K3's inputs: the (D,) int32 stable id-sorted order of the entries and
+    the (n + 1,) int32 run bounds of splat ids 0..n-1 in it (the pads' run,
+    id n, is left out)."""
     sorted_ids, perm = torch.sort(_splat_ids(entry_rank, n), stable=True)
-    bounds = torch.searchsorted(sorted_ids, torch.arange(n + 1, device=rows.device))
-    return rows[perm], bounds.to(torch.int32)
+    bounds = torch.searchsorted(sorted_ids, torch.arange(n + 1, dtype=torch.int32,
+                                                         device=entry_rank.device),
+                                out_int32=True)
+    return perm.to(torch.int32), bounds
 
 
 class _CompositeTiles(torch.autograd.Function):
