@@ -52,6 +52,22 @@ exits non-zero):
    their entry points: every P1 variant exact against the numpy ground
    truth and equal to its plain version, every P2 row within its stated
    tolerance of its plain version, with times and bounds.
+9. The dataset path at full width: a COLMAP capture of the bench scene
+   written with the port's writers (one PINHOLE camera at 1066x1600, the
+   8 orbit views' ground truth rendered by K1 and saved as PNG, 131,072 of
+   the scene's means with their DC colours as ``points3D.bin``, each
+   image's observations of the points that project inside it), read by
+   ``train_cli.build_scene``; ``DepthEstimator`` with ``sparse_interp``
+   twice (fills the cache, then reads it); a ``Trainer`` ("mxu",
+   ``regularize_depth``) initialised from the SfM points in 262,144 slots
+   runs 12 steps under ``run_async`` while a ``Viewer`` on port 0 serves
+   full-width frames to a websocket client (launch counts: one K1 per step
+   and per frame, one K2 and K3 per step; the loss over all views falls);
+   K1 bit-equal to its plain version at the last served camera, K2 and K3
+   (bit for bit, twice) at the last step; ``export_cli`` writes PLY and
+   .splat from the step-12 checkpoint, and the ``import_ply`` state renders
+   the trainer's frame to 2e-4. Prints load, depth (cold and cached), step,
+   frame latency, export times, file sizes and peak memory.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -117,6 +133,12 @@ RESUME_TOL = 1e-5
 # retune keeps them (it shrinks only below a quarter in use).
 TRAINER_KW = dict(tile_x=64, dup_capacity=2_000_000, span_capacity=2_000_000,
                   max_per_tile=8192)
+# Phase 9: a COLMAP capture of the bench scene (8 PINHOLE views at full
+# width, half the scene's means as SfM points), trained from those points in
+# N_SPLATS slots with depth regularization, beside the live viewer. An
+# imported PLY renders the trainer's frame to this tolerance.
+DATASET_VIEWS, DATASET_POINTS, DATASET_STEPS = 8, N_SPLATS // 2, 12
+EXPORT_TOL = 2e-4
 
 
 def gpu_name_and_limit() -> str:
@@ -363,15 +385,16 @@ def backward_inputs(torch, rc, train, cam, gt, deg, cfg, budgets=RENDER_KW):
     from tinysplat_torch.ops.ssim import ssim
     from tinysplat_torch.render import splat_inputs
 
-    bg = torch.zeros(3, device="cuda")
+    height, width = gt.shape[:2]
+    bg = torch.zeros(3, device=gt.device)
     with torch.no_grad():
-        s = splat_inputs(train.params, train.alive, cam, HEIGHT, WIDTH, deg, bg)
+        s = splat_inputs(train.params, train.alive, cam, height, width, deg, bg)
         ti = rc.tile_inputs(s.xys, s.proj.depths, s.proj.radii, s.proj.conics, s.colors4,
-                            s.opacities, s.valid, HEIGHT, WIDTH, **budgets)
+                            s.opacities, s.valid, height, width, **budgets)
         out = rc.composite_fwd(ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx,
                                ti.sy, ti.tile_x)
     out_g = out.clone().requires_grad_()
-    img, _ = rc.untile(out_g, s.bg4, ti.tiles_x, ti.tiles_y, ti.tile_x, HEIGHT, WIDTH)
+    img, _ = rc.untile(out_g, s.bg4, ti.tiles_x, ti.tiles_y, ti.tile_x, height, width)
     rgb = torch.clamp(img[..., :3], max=1.0)
     loss = ((1.0 - cfg.lambda_dssim) * (rgb - gt).abs().mean()
             + cfg.lambda_dssim * (1.0 - ssim(rgb, gt)))
@@ -759,6 +782,302 @@ def probes_phase(torch):
              "bound_by": "operations", "library_ms": None})
 
 
+def check_launches(got, want, label):
+    """Raise unless each kernel's launch count is the expected one."""
+    if got != want:
+        raise AssertionError(f"{label}: expected launches {want}, counted {got}")
+
+
+def rotmat_to_qvec(rot):
+    """(w, x, y, z) unit quaternion of a rotation matrix (COLMAP's qvec)."""
+    r = np.asarray(rot, np.float64)
+    w = np.sqrt(max(0.0, 1.0 + r[0, 0] + r[1, 1] + r[2, 2])) / 2
+    x = np.copysign(np.sqrt(max(0.0, 1.0 + r[0, 0] - r[1, 1] - r[2, 2])) / 2, r[2, 1] - r[1, 2])
+    y = np.copysign(np.sqrt(max(0.0, 1.0 - r[0, 0] + r[1, 1] - r[2, 2])) / 2, r[0, 2] - r[2, 0])
+    z = np.copysign(np.sqrt(max(0.0, 1.0 - r[0, 0] - r[1, 1] + r[2, 2])) / 2, r[1, 0] - r[0, 1])
+    q = np.asarray([w, x, y, z])
+    return q / np.linalg.norm(q)
+
+
+def write_colmap_capture(torch, root, state, deg, bg, views, n_points, device="cuda"):
+    """A COLMAP capture of ``state`` under ``root`` with the port's writers:
+    one PINHOLE camera, the ground truth of each orbit view in ``views``
+    rendered (K1) and saved as PNG, ``points3D.bin`` with ``n_points`` of
+    the live means (every second one) and their DC colours, and each
+    image's 2-D observations of the points that project inside it (as
+    ``depthest/sparse.py`` projects). Returns the observation counts."""
+    from PIL import Image
+
+    from tinysplat_torch.data import colmap
+    from tinysplat_torch.render import render
+    from tinysplat_torch.utils.color import SH2RGB
+
+    height, width = views[0].height, views[0].width
+    sparse, images = os.path.join(root, "sparse", "0"), os.path.join(root, "images")
+    os.makedirs(sparse)
+    os.makedirs(images)
+    alive = state.alive.cpu().numpy()
+    pick = np.arange(0, int(alive.sum()), 2)[:n_points]
+    xyz = state.params.means.detach().cpu().numpy()[alive][pick].astype(np.float64)
+    rgb = np.clip(SH2RGB(state.params.colors_dc.detach().cpu().numpy()[alive][pick]), 0, 1)
+    ids = np.arange(1, len(pick) + 1, dtype=np.int64)
+    fx, fy = views[0].f_x, views[0].f_y
+    cams = {1: colmap.ColmapCamera(1, "PINHOLE", width, height,
+                                   np.asarray([fx, fy, width / 2, height / 2]))}
+    recs, counts = {}, []
+    for i, view in enumerate(views):
+        with torch.no_grad():
+            img = render(state.params, state.alive, view.params(device), height, width, deg,
+                         bg, **RENDER_KW)[0]
+        name = f"view_{i:02d}.png"
+        Image.fromarray((img.cpu().numpy() * 255.0 + 0.5).astype(np.uint8)).save(
+            os.path.join(images, name))
+        rot = view.view_matrix[:3, :3].astype(np.float64)
+        tvec = view.view_matrix[:3, 3].astype(np.float64)
+        cam_xyz = xyz @ rot.T + tvec
+        z = cam_xyz[:, 2]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            u = cam_xyz[:, 0] / z * fx + width / 2
+            v = cam_xyz[:, 1] / z * fy + height / 2
+        col, row = np.round(u), np.round(v)
+        keep = (z > 0) & (col >= 0) & (col < width) & (row >= 0) & (row < height)
+        counts.append(int(keep.sum()))
+        recs[i + 1] = colmap.ColmapImage(i + 1, rotmat_to_qvec(rot), tvec, 1, name,
+                                         np.stack([u, v], axis=1)[keep], ids[keep])
+    colmap.write_cameras_binary(cams, os.path.join(sparse, "cameras.bin"))
+    colmap.write_images_binary(recs, os.path.join(sparse, "images.bin"))
+    colmap.write_points3d_binary(colmap.ColmapPoints(
+        ids=ids, xyz=xyz, rgb=np.round(rgb * 255).astype(np.uint8),
+        error=np.full(len(ids), 0.5)), os.path.join(sparse, "points3D.bin"))
+    return counts
+
+
+async def viewer_client(port, trainer, steps, poses, frames):
+    """A websocket client of the live viewer: asks for a frame at the next
+    pose as soon as the last one arrives, as long as training runs; appends
+    (latency s, step at the request, base64 JPEG) per frame."""
+    import asyncio
+
+    import websockets
+
+    async with websockets.connect(f"ws://127.0.0.1:{port}", max_size=None) as ws:
+        kind = "cameraInfo"
+        while trainer.step < steps:
+            pos, quat = poses[len(frames) % len(poses)]
+            step = trainer.step
+            t0 = time.perf_counter()
+            await ws.send(json.dumps({"type": kind, "position": pos, "quat": quat,
+                                      "aspectRatio": WIDTH / HEIGHT}))
+            reply = json.loads(await asyncio.wait_for(ws.recv(), 300))
+            frames.append((time.perf_counter() - t0, step, reply["image"]))
+            kind = "renderRequest"
+
+
+def objective(torch, tt, trainer, cams):
+    """The training loss (L1 + DSSIM + the depth term at step 1's gates)
+    of ``trainer``'s state, averaged over ``cams`` at full resolution."""
+    st, cfg = trainer.state, trainer.cfg
+    bg = torch.zeros(3, device=trainer.device)
+    losses = []
+    with torch.no_grad():
+        for cam in cams:
+            gt = trainer._device_image(cam, cam.width, cam.height)
+            depth = torch.as_tensor(cam.estimated_depth, device=trainer.device)
+            loss, _ = tt.compute_losses(st.params, None, st, cam.params(trainer.device), gt,
+                                        depth, bg, 1, cfg, cam.height, cam.width)
+            losses.append(float(loss))
+    return statistics.mean(losses)
+
+
+def decode_jpeg(b64):
+    """A served frame as an HxWx3 uint8 array."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(b64))).convert("RGB"))
+
+
+def dataset_phase(torch, rc, tt, Config, state, deg, bg, device="cuda", height=HEIGHT,
+                  width=WIDTH, views=DATASET_VIEWS, n_points=DATASET_POINTS,
+                  capacity=N_SPLATS, steps=DATASET_STEPS, budgets=TRAINER_KW):
+    """Phase 9: the dataset path at full width; see the module docstring."""
+    import asyncio
+    import copy
+
+    from tinysplat_torch import export_cli, train_cli
+    from tinysplat_torch.data.synthetic import orbit_cameras
+    from tinysplat_torch.depthest import DepthEstimator
+    from tinysplat_torch.io.export import import_ply
+    from tinysplat_torch.render import render, splat_inputs
+    from tinysplat_torch.train_loop import Trainer
+    from tinysplat_torch.viewer import Viewer
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"phase 9: a COLMAP capture ({views} views, {height}x{width}, {n_points} SfM "
+          f"points), depth-regularized training from the points in {capacity} slots, "
+          f"{steps} steps under run_async beside the live viewer, export", flush=True)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        obs = write_colmap_capture(torch, root, state, deg, bg,
+                                   orbit_cameras(views, width=width, height=height),
+                                   n_points, device)
+        print(f"  capture written in {time.perf_counter() - t0:.3f} s; observations per "
+              f"image {obs}", flush=True)
+        cfg = Config(dataset_dir=root, colmap_path=os.path.join(root, "sparse", "0"),
+                     images_path=os.path.join(root, "images"),
+                     depths_path=os.path.join(root, "depths"), regularize_depth=True,
+                     depth_model="sparse_interp", grad_reduce="mxu", background="black",
+                     capacity=capacity, max_iter=steps, save_checkpoints=True,
+                     checkpoint_interval=steps, checkpoint_dir=os.path.join(root, "ckpt"),
+                     **budgets)
+        t0 = time.perf_counter()
+        scene, pcd, cfg = train_cli.build_scene(cfg, device)
+        load_s = time.perf_counter() - t0
+        cams = scene.cameras
+        if (len(cams) != views or (cams[0].height, cams[0].width) != (height, width)
+                or len(pcd.xyz) != n_points):
+            raise AssertionError(f"build_scene: {len(cams)} cameras of "
+                                 f"{cams[0].height}x{cams[0].width}, {len(pcd.xyz)} points")
+        depth_s = []
+        for _ in range(2):  # the first fills the cache, the second reads it
+            t0 = time.perf_counter()
+            est = DepthEstimator(scene, pcd=pcd, depths_path=cfg.depths_path,
+                                 model_name=cfg.depth_model)
+            depth_s.append((time.perf_counter() - t0) / views)
+        if est.backend is not None or len(os.listdir(cfg.depths_path)) != views:
+            raise AssertionError("the second DepthEstimator did not read the cache")
+        dmaps = np.stack([c.estimated_depth for c in cams])
+        if dmaps.shape != (views, height, width) or not np.isfinite(dmaps).all():
+            raise AssertionError(f"bad depth maps {dmaps.shape}")
+        print(f"  build_scene (COLMAP read, PNG handles) {load_s:.3f} s; depth "
+              f"(sparse_interp + scale fit) {depth_s[0]:.3f} s a camera cold, "
+              f"{depth_s[1]:.4f} s cached; depth range {float(dmaps.min()):.3f}-"
+              f"{float(dmaps.max()):.3f} (orbit radius 3.0)", flush=True)
+
+        start = tt.init_from_pcd(pcd.xyz, pcd.colors, sh_degree=cfg.sh_degree,
+                                 capacity=cfg.capacity, seed=cfg.seed, device=device)
+        trainer = Trainer(cfg, scene, start)
+        scene.render_fn = lambda camera, dims=None: trainer.render_camera(camera, dims)
+        psnr_before = trainer.evaluate(cams)["eval_psnr"]
+        loss_before = objective(torch, tt, trainer, cams)
+        poses = []
+        for cam in orbit_cameras(2 * views, width=width, height=height)[1::2]:
+            rot = cam.view_matrix[:3, :3]
+            poses.append((cam.position.tolist(), rotmat_to_qvec(rot).tolist()))
+        viewer = Viewer(scene, "127.0.0.1", 0)
+        frames, step_s, losses = [], [], []
+
+        async def train():
+            for s in range(1, steps + 1):
+                t0 = time.perf_counter()
+                await trainer.run_async(s)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                m = trainer.last_metrics
+                losses.append((float(m["loss"]), float(m["loss_depth"])))
+
+        async def serve_and_train():
+            server = asyncio.create_task(viewer.run())
+            while viewer.server is None:
+                if server.done():
+                    server.result()
+                await asyncio.sleep(0.01)
+            port = viewer.server.sockets[0].getsockname()[1]
+            await asyncio.gather(train(), viewer_client(port, trainer, steps, poses, frames))
+            viewer.stop()
+            await server
+            viewer._queue_task.cancel()
+            return port
+
+        kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+        for k in kernels:
+            k.launches = 0
+        port = asyncio.run(serve_and_train())
+        launches = {k.__name__: k.launches for k in kernels}
+        check_launches(launches, {"composite_fwd": steps + len(frames), "composite_bwd": steps,
+                                  "segsum": steps}, "phase 9 (steps and frames)")
+        psnr_after = trainer.evaluate(cams)["eval_psnr"]
+        loss_after = objective(torch, tt, trainer, cams)
+        during = [f for f in frames if f[1] < steps]
+        print(f"  viewer on port {port} (bound to 0): {len(frames)} frames, {len(during)} "
+              f"asked for while training ran, at steps {[f[1] for f in frames]}; frame latency "
+              f"the client saw (s) {[round(f[0], 4) for f in frames]}, median "
+              f"{statistics.median(f[0] for f in frames):.4f} s; launches {launches}",
+              flush=True)
+        if len(during) < 2:
+            raise AssertionError("the viewer served fewer than two frames during training")
+        shape = decode_jpeg(frames[-1][2]).shape
+        if shape != (height, width, 3):
+            raise AssertionError(f"served frame of shape {shape}")
+        print(f"  steps under run_async beside the viewer: host s "
+              f"{[round(x, 4) for x in step_s]}, median {statistics.median(step_s):.4f} s; "
+              f"(loss, loss_depth) per step {[(round(a, 5), round(b, 5)) for a, b in losses]}; "
+              f"the loss over all {views} views {loss_before:.5f} -> {loss_after:.5f}, their "
+              f"PSNR {psnr_before:.3f} -> {psnr_after:.3f} dB", flush=True)
+        if not np.isfinite(losses).all() or not loss_after < loss_before:
+            raise AssertionError("the loss over the views did not fall")
+
+        # K1 bit for bit at the last served frame's camera; K2 within BWD_TOL
+        # and K3 bit for bit, twice, at the last step's camera.
+        camera = copy.copy(cams[0])
+        camera.update_view_matrix(*(np.asarray(x, np.float32)
+                                    for x in poses[(len(frames) - 1) % len(poses)]))
+        cam_p = camera.params(device)
+        tb = {k: getattr(trainer.cfg, k) for k in budgets}
+        st, active = trainer.state, int(trainer.state.active_sh_degree)
+        with torch.no_grad():
+            s = splat_inputs(st.params, st.alive, cam_p, height, width, active, bg)
+            ti = rc.tile_inputs(s.xys, s.proj.depths, s.proj.radii, s.proj.conics, s.colors4,
+                                s.opacities, s.valid, height, width, **tb)
+        fargs = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy, ti.tile_x)
+        got, ref = rc.composite_fwd(*fargs), rc.composite_fwd_plain(*fargs)
+        torch.cuda.synchronize()
+        if not same_bytes(torch, got, ref):
+            raise AssertionError("K1 is not bit-equal to its plain version at the served "
+                                 "frame's camera")
+        last = scene.get_random_camera(trainer.step - 1)
+        ti2, out2, gout2 = backward_inputs(torch, rc, st, last.params(device),
+                                           trainer._device_image(last, width, height),
+                                           active, trainer.cfg, tb)
+        compare_backward(torch, rc, ti2, out2, gout2, f"dataset step {trainer.step}")
+        print(f"  K1 at the served camera: bit-equal to its plain version ({int(ti.counts.sum())} "
+              f"entries); K3 twice: bit-equal at the last step", flush=True)
+
+        # Export through the CLI from the step-12 checkpoint, import the PLY.
+        (ckpt,) = [os.path.join(cfg.checkpoint_dir, f) for f in os.listdir(cfg.checkpoint_dir)]
+        sizes, export_s = {}, {}
+        for filetype in ("PLY", "SPLAT"):
+            out_path = os.path.join(root, f"model.{filetype.lower()}")
+            t0 = time.perf_counter()
+            export_cli.main(["--filetype", filetype, "--device", device, ckpt, out_path])
+            export_s[filetype] = time.perf_counter() - t0
+            sizes[filetype] = os.path.getsize(out_path)
+        live = int(trainer.state.num_live())
+        t0 = time.perf_counter()
+        imported = import_ply(os.path.join(root, "model.ply"), device=device)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        if sizes["SPLAT"] != 32 * live or int(imported.num_live()) != live:
+            raise AssertionError(f"export sizes {sizes} for {live} live splats")
+        with torch.no_grad():
+            rgb_tr, _ = trainer.render_camera(camera)
+            rgb_im, _ = render(imported.params, imported.alive, cam_p, height, width, active,
+                               torch.zeros(3, device=device), **tb)
+        export_err = float((rgb_tr - rgb_im).abs().max())
+        print(f"  export_cli from the step-{steps} checkpoint ({os.path.getsize(ckpt) / 2**20:.1f}"
+              f" MiB): PLY {export_s['PLY']:.3f} s, {sizes['PLY']} bytes; .splat "
+              f"{export_s['SPLAT']:.3f} s, {sizes['SPLAT']} bytes ({live} live); import_ply "
+              f"{import_s:.3f} s; its render vs the trainer's at the served camera: max abs "
+              f"diff {export_err:.3e} (tol {EXPORT_TOL:g})", flush=True)
+        if export_err > EXPORT_TOL:
+            raise AssertionError("the imported PLY renders another frame")
+    print(f"  phase 9: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -781,6 +1100,13 @@ def main() -> int:
     print(gpu_name_and_limit(), flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
+    host = {}
+    for mod in ("PIL", "cv2", "websockets", "scipy"):
+        try:
+            host[mod] = getattr(__import__(mod), "__version__", "?")
+        except ImportError:
+            host[mod] = None
+    print(f"host packages (None: missing): {host}", flush=True)
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1064,6 +1390,9 @@ def main() -> int:
 
     # -- 8. the probes P1 and P2 -------------------------------------------------------
     p1, p2 = probes_phase(torch)
+
+    # -- 9. the dataset path: COLMAP, depth, viewer, export ----------------------------
+    dataset_phase(torch, rc, tt, Config, state, deg, bg)
 
     record = {"kernels": [{
         "name": "composite_fwd",

@@ -1,7 +1,8 @@
 """The port's train CLI (``python -m tinysplat_torch.train_cli``) vs
 ``scripts/train.py``: flag parity with its ``arg_parser`` (loaded by path),
 a synthetic run on the CPU whose checkpoint the JAX package loads, resume
-from it, and the flags whose modules a later slice brings.
+from it, and the flags whose modules a later slice brings. Datasets,
+depth and the viewer are tested in test_torch_port_{data,depthest,viewer}.py.
 """
 import importlib.util
 import os
@@ -69,12 +70,11 @@ def test_synthetic_run_checkpoint_loads_in_jax_and_resumes(tmp_path):
     assert np.isfinite(resumed.evaluate()["eval_psnr"])
 
 
-@pytest.mark.parametrize("flags,slice_", [([], "slice D"),
-                                          (["--no-viewer"], "slice D"),
-                                          (["--no-viewer", "--synthetic", "--mesh-tile", "2"],
-                                           "item 16"),
-                                          (["--no-viewer", "--synthetic", "--distributed"],
-                                           "item 16")])
+@pytest.mark.parametrize("flags,slice_", [(["--regularize-density"], "slice E"),
+                                          (["--densify-strategy", "mcmc"], "slice E"),
+                                          (["--mesh-tile", "2"], "item 16"),
+                                          (["--distributed"], "item 16")])
 def test_unported_flags_raise(flags, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
-        train_cli.main(flags + ["--device", "cpu"])
+        train_cli.main(flags + ["--no-viewer", "--synthetic", "--rasterizer", "dense",
+                                "--device", "cpu"])

@@ -47,6 +47,25 @@ def test_port_imports_no_jax():
             assert mod.split(".")[0] not in FORBIDDEN, f"{path} imports {mod}"
 
 
+SLICE_D_MODULES = ("data", "data.colmap", "data.dataset", "data.blender", "depthest",
+                   "depthest.sparse", "depthest.align", "depthest.backends",
+                   "depthest.estimator", "io.ply", "io.export", "export_cli", "viewer")
+
+
+@pytest.mark.parametrize("module", SLICE_D_MODULES)
+def test_slice_d_modules_import_no_jax(module):
+    """The data, depth, export and viewer modules: copies of the JAX
+    package's numpy-only modules, never imports of them."""
+    rel = module.replace(".", os.sep)
+    path = os.path.join(REPO, "tinysplat_torch", rel + ".py")
+    if not os.path.exists(path):
+        path = os.path.join(REPO, "tinysplat_torch", rel, "__init__.py")
+    assert path in _port_sources()
+    mods = list(_imported_modules(path))
+    assert not [m for m in mods if m.split(".")[0] in FORBIDDEN], mods
+    importlib.import_module(f"tinysplat_torch.{module}")
+
+
 def test_cuda_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -74,6 +93,16 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         render_path.main([path, str(tmp_path / "out"), "--frames", "1"])
     assert not (tmp_path / "out").exists()
+    from tinysplat_torch import export_cli
+    from tinysplat_torch.io.export import export_ply, import_ply
+
+    ply = str(tmp_path / "m.ply")
+    export_ply(state, ply)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        import_ply(ply)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        export_cli.main(["--filetype", "SPLAT", path, str(tmp_path / "m.splat")])
+    assert not (tmp_path / "m.splat").exists()
 
 
 def test_every_module_imports_without_nvcc():
@@ -82,7 +111,7 @@ def test_every_module_imports_without_nvcc():
 
     names = [m.name for m in pkgutil.walk_packages(tt.__path__, "tinysplat_torch.")]
     for new in ("models.densify", "train_loop", "train_cli", "io.checkpoint",
-                "probes.bitcast", "probes.op_costs"):
+                "probes.bitcast", "probes.op_costs") + SLICE_D_MODULES:
         assert f"tinysplat_torch.{new}" in names
     for name in names:
         importlib.import_module(name)

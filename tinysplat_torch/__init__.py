@@ -14,8 +14,12 @@ compositing backward K2 and the gradient reduction, K3 under
 ``grad_reduce="mxu"`` -> Adam -> the densify gradient accumulator, with
 the pose / appearance deltas of ``pose_opt`` / ``app_opt``); the trainer
 (``train_loop.Trainer``: densify, capacity growth, compaction, checkpoints
-and resume, ``python -m tinysplat_torch.train_cli``); and the Hopper
-counterparts of the JAX package's two kernel probes (``probes``).
+and resume, ``python -m tinysplat_torch.train_cli``); the Hopper
+counterparts of the JAX package's two kernel probes (``probes``); and the
+data path: COLMAP and Blender datasets (``data``), SfM-depth
+regularization (``depthest``), PLY / .splat export (``io.export``,
+``python -m tinysplat_torch.export_cli``) and the live viewer beside a
+running trainer (``viewer``, ``Trainer.run_async``).
 """
 
 from .cameras import Camera, CameraParams

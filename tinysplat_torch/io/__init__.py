@@ -1,3 +1,16 @@
 from .checkpoint import load_checkpoint, load_checkpoint_extras, load_model, save_checkpoint
+from .export import export_mesh_obj, export_ply, export_splat, import_ply
+from .ply import read_ply, write_ply
 
-__all__ = ["load_checkpoint", "load_checkpoint_extras", "load_model", "save_checkpoint"]
+__all__ = [
+    "export_mesh_obj",
+    "export_ply",
+    "export_splat",
+    "import_ply",
+    "load_checkpoint",
+    "load_checkpoint_extras",
+    "load_model",
+    "read_ply",
+    "save_checkpoint",
+    "write_ply",
+]

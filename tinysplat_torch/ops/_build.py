@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -27,6 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("composite_fwd", "composite_bwd", "segsum", "probe_bitcast", "probe_op_costs")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# A viewer thread and the trainer's thread may launch a kernel first at once.
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -86,11 +89,13 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built first if needed)."""
-    lib = _loaded.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        _loaded[name] = lib
+    """The loaded library of kernel ``name`` (built first if needed; one
+    thread builds and loads it, the others wait for that)."""
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            _loaded[name] = lib
     return lib
 
 

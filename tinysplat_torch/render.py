@@ -111,7 +111,10 @@ def splat_inputs(params: GaussianParams, alive, camera: CameraParams,
 
     viewdirs = compute_viewdirs(params.means, camera, viewdirs_mode)
     rgbs = eval_sh(active_sh_degree, viewdirs, params.sh_coeffs())
-    rgbs = torch.clamp(rgbs + 0.5, min=0.0)
+    # maximum / minimum, not clamp: at a tie (an SfM colour channel of 0
+    # gives exactly 0 here) the gradient is split in half, as in the JAX
+    # package; clamp would pass all of it.
+    rgbs = torch.maximum(rgbs + 0.5, rgbs.new_zeros(()))
 
     opacities = torch.sigmoid(params.opacities.reshape(-1))
     if antialiased:
@@ -184,7 +187,7 @@ def render(
             return_diagnostics=True, tile_size=tile_size,
         )
 
-    rgb = torch.clamp(img4[..., :3], max=1.0)
+    rgb = torch.minimum(img4[..., :3], img4.new_ones(()))  # ties as in splat_inputs
     extras = {
         "depth": img4[..., 3],
         "alpha": alpha,

@@ -1,23 +1,32 @@
 """Training CLI of the port, with the flags of the JAX package's trainer.
 
-    python -m tinysplat_torch.train_cli --train --no-viewer --synthetic \
-        --max-iter 200 [--device cuda] [--save-checkpoints ...]
+    python -m tinysplat_torch.train_cli --train --dataset-dir datasets/truck \
+        [--regularize-depth --depth-model sparse_interp] [--viewer] \
+        [--device cuda] [--save-checkpoints ...]
 
 Flags are generated from ``Config``, with the names and defaults of
-``scripts/train.py``; ``--device`` defaults to ``cuda`` here. The
-``--synthetic`` scene (10 orbit views of a 400-splat random cloud, rendered
-by the port's own renderer) trains without any dataset. Resume with
+``scripts/train.py``; ``--device`` defaults to ``cuda`` here. The scene is
+a COLMAP capture (``<dataset-dir>/<colmap-path>`` with images under
+``<dataset-dir>/<images-path>``) when that directory exists or no
+``transforms*.json`` does, else a Blender / nerfstudio ``transforms.json``
+scene (trained over white unless ``--background black``); ``--synthetic``
+(10 orbit views of a 400-splat random cloud, rendered by the port's own
+renderer) needs no dataset. ``--regularize-depth`` estimates and caches a
+depth map per training camera under ``<dataset-dir>/<depths-path>`` first.
+``--viewer`` serves the live websocket viewer on
+``--viewer-ip``/``--viewer-port`` while training runs in a worker thread
+(``Trainer.run_async``); it keeps serving after the last step. Resume with
 ``--load-checkpoint ckpt.npz`` (a checkpoint of either package; the
 ``pose_opt`` / ``app_opt`` tables come back from its extras), hold out
 every k-th camera for evaluation with ``--eval-holdout k``.
 
-Not ported yet (raise NotImplementedError): COLMAP and Blender datasets and
-``--viewer`` (slice D; pass ``--no-viewer``), and the distributed / mesh
-flags (ROADMAP Queue 1 item 16).
+Not ported yet (raise NotImplementedError): the distributed / mesh flags
+(ROADMAP Queue 1 item 16).
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
 import logging
 import os
@@ -44,20 +53,56 @@ def arg_parser() -> argparse.ArgumentParser:
 
 def check_flags(cfg: Config) -> None:
     """Raise for the flags whose modules a later slice brings."""
-    if cfg.viewer:
-        raise _not_ported("--viewer (pass --no-viewer)", "viewer.py", "slice D")
     if (cfg.distributed or cfg.coordinator_address or cfg.mesh_tile > 1
             or cfg.mesh_splat > 1):
         raise _not_ported("multi-device training (--distributed, --mesh-tile, --mesh-splat)",
                           "parallel/ on torch.distributed", "item 16")
-    if not cfg.synthetic:
-        raise _not_ported("training on a dataset (use --synthetic)",
-                          "data/colmap.py, data/dataset.py and data/blender.py", "slice D")
 
 
 def build_scene(cfg: Config, device):
-    """The synthetic scene: (scene, pcd). Ground truth comes from a fixed
-    random splat cloud rendered with the port's renderer."""
+    """Dataset -> (scene, pcd, cfg). The returned cfg may carry a
+    dataset-driven default: a fixed white background for transforms.json
+    scenes. ``device`` is where the synthetic scene's ground truth renders."""
+    from .scene import Scene
+
+    if cfg.synthetic:
+        return _synthetic_scene(cfg, device) + (cfg,)
+    # COLMAP first when a sparse reconstruction exists (nerfstudio exports
+    # often ship both transforms.json and colmap/, and SfM points beat a
+    # random init cloud); otherwise a transforms*.json scene.
+    tj = None
+    for cand in ("transforms_train.json", "transforms.json"):
+        p = os.path.join(cfg.dataset_dir, cand)
+        if os.path.exists(p):
+            tj = p
+            break
+    if os.path.isdir(cfg.colmap_path) or tj is None:
+        from .data.dataset import Dataset
+
+        dataset = Dataset(cfg.colmap_path, cfg.images_path,
+                          max_image_dimension=cfg.max_image_dimension or None)
+    else:
+        from .data.blender import BlenderDataset
+
+        if cfg.background == "random":
+            # RGBA GT frames are composited onto a fixed colour at load; a
+            # per-step random training background would force the model to
+            # build an opaque backdrop shell. White is the NeRF-synthetic
+            # convention; --background black overrides.
+            logging.getLogger(__name__).info(
+                "transforms.json scene: training background set to 'white' "
+                "to match GT compositing (--background overrides)")
+            cfg = dataclasses.replace(cfg, background="white")
+        bg = (0.0, 0.0, 0.0) if cfg.background == "black" else (1.0, 1.0, 1.0)
+        dataset = BlenderDataset(
+            tj, seed=cfg.seed, num_init_points=cfg.random_init_points, background=bg,
+            max_image_dimension=cfg.max_image_dimension or None)
+    return Scene(dataset.cameras, seed=cfg.seed), dataset.pcd, cfg
+
+
+def _synthetic_scene(cfg: Config, device):
+    """(scene, pcd) of ``--synthetic``: ground truth from a fixed random
+    splat cloud rendered with the port's renderer."""
     import numpy as np
     import torch
 
@@ -80,8 +125,8 @@ def build_scene(cfg: Config, device):
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """Parse the flags, build the scene and state, train; returns the
-    trainer."""
+    """Parse the flags, build the scene and state, train (beside the live
+    viewer with ``--viewer``); returns the trainer."""
     logging.basicConfig(level=getattr(logging, os.environ.get("LOG_LEVEL", "INFO")),
                         format="%(asctime)s - %(levelname)s - %(message)s")
     cfg = Config(**vars(arg_parser().parse_args(argv)))
@@ -99,7 +144,7 @@ def main(argv: Optional[Sequence[str]] = None):
     from .utils.device import resolve_device
 
     device = resolve_device(cfg.device)
-    scene, pcd = build_scene(cfg, device)
+    scene, pcd, cfg = build_scene(cfg, device)
     eval_cameras = []
     if cfg.eval_holdout > 1:  # every k-th camera held out for evaluation
         all_cams = scene.cameras
@@ -113,12 +158,26 @@ def main(argv: Optional[Sequence[str]] = None):
     else:
         state = init_from_pcd(pcd.xyz, pcd.colors, sh_degree=cfg.sh_degree,
                               capacity=cfg.capacity, seed=cfg.seed, device=device)
+    if cfg.regularize_depth and not cfg.synthetic:
+        from .depthest import DepthEstimator
+
+        DepthEstimator(scene, pcd=pcd, depths_path=cfg.depths_path, model_name=cfg.depth_model)
     trainer = Trainer(cfg, scene, state, opt_state, start_step, rng_state)
     if cfg.load_checkpoint and (cfg.pose_opt or cfg.app_opt):
         trainer.restore_pose_state(load_checkpoint_extras(cfg.load_checkpoint))
     trainer.eval_cameras = eval_cameras
     scene.render_fn = lambda camera, dims=None: trainer.render_camera(camera, dims)
-    if cfg.train:
+    if cfg.viewer:
+        from .viewer import Viewer
+
+        async def serve_and_train():
+            coroutines = [Viewer(scene, cfg.viewer_ip, cfg.viewer_port).run()]
+            if cfg.train:
+                coroutines.append(trainer.run_async())
+            await asyncio.gather(*coroutines)
+
+        asyncio.run(serve_and_train())
+    elif cfg.train:
         trainer.run()
     return trainer
 

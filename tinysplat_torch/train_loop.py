@@ -11,7 +11,12 @@ Torch port of ``tinysplat_tpu.train_loop``. What stays on the host:
   and the opacity reset;
 - the per-camera pose / appearance Adams of ``pose_opt`` / ``app_opt``;
 - the binning-budget retune, the NaN guard (snapshot and rollback), sync and
-  async checkpoints, held-out evaluation and a ``torch.profiler`` window.
+  async checkpoints, held-out evaluation and a ``torch.profiler`` window;
+- ``run_async``: the steps in an executor thread beside the live viewer's
+  event loop. A lock held across each step and across ``render_camera``
+  makes a frame rendered from another thread see a whole step (the
+  in-place Adam, densify and reset writes never half-applied), and the
+  render draws nothing from the trainer's generator.
 
 PyTorch runs eagerly, so there is no step cache: the step is rebuilt from
 ``self.cfg`` each time, and a budget retune (a new ``cfg``) takes effect at
@@ -21,8 +26,8 @@ and Adam moments in place; growth, compaction and a rollback make new
 tensors and rebuild the optimizer (``GaussianAdam.carried``).
 
 Not ported yet (raise NotImplementedError): the density-probe refresh,
-diffusion views and ``densify_strategy="mcmc"`` (slice E), ``run_async``
-with the viewer (slice D) and ``MeshTrainer`` (ROADMAP Queue 1 item 16).
+diffusion views and ``densify_strategy="mcmc"`` (slice E) and
+``MeshTrainer`` (ROADMAP Queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -168,6 +173,8 @@ class Trainer:
         self.cfg = cfg
         self.scene = scene
         self.state = state
+        # Held across a step and across render_camera (see the module doc).
+        self._lock = threading.RLock()
         self.device = state.alive.device
         self.opt_state = opt_state if opt_state is not None else init_opt_state(cfg, state)
         self.step = start_step
@@ -349,7 +356,11 @@ class Trainer:
     # -- main loop --------------------------------------------------------------------
 
     def train_step(self) -> None:
-        """One training iteration."""
+        """One training iteration, under the trainer's lock."""
+        with self._lock:
+            self._train_step()
+
+    def _train_step(self) -> None:
         cfg = self.cfg
         self.step += 1
         # 0-based sample index: step was just incremented.
@@ -535,8 +546,23 @@ class Trainer:
             self.finish_checkpoints()
 
     async def run_async(self, max_iter: Optional[int] = None) -> None:
-        raise _not_ported("Trainer.run_async (training beside the live viewer)",
-                          "viewer.py", "slice D")
+        """``run`` beside an event loop (the live viewer's): each step runs
+        in an executor thread, so the loop keeps serving sockets while the
+        device works, and the loop is yielded after each step."""
+        import asyncio
+
+        loop = asyncio.get_running_loop()
+        end = max_iter if max_iter is not None else self.cfg.max_iter
+        if self.cfg.prefetch_images:
+            self.prefetch_images()
+        try:
+            while self.step < end:
+                self._maybe_profile_window()
+                await loop.run_in_executor(None, self.train_step)
+                self._maybe_eval()
+                await asyncio.sleep(0)
+        finally:
+            self.finish_checkpoints()
 
     def _maybe_profile_window(self) -> None:
         """cfg.profile_steps N: trace steps [profile_start, profile_start + N)
@@ -637,13 +663,14 @@ class Trainer:
 
     def render_camera(self, camera: Camera, dims=None, background=None):
         """Inference render of ``camera`` (refined pose under pose_opt) at
-        ``dims`` (w, h), default its own: (rgb, extras)."""
+        ``dims`` (w, h), default its own: (rgb, extras). Safe to call from a
+        viewer thread while another thread trains (the trainer's lock)."""
         w, h = dims if dims is not None else (camera.width, camera.height)
         bg = background if background is not None else torch.zeros(3, device=self.device)
-        state, cfg = self.state, self.cfg  # one consistent version
-        cam_params = camera.params(self.device)
-        slot = self._pose_slot(camera)
-        with torch.no_grad():
+        with self._lock, torch.no_grad():
+            state, cfg = self.state, self.cfg  # one consistent version
+            cam_params = camera.params(self.device)
+            slot = self._pose_slot(camera)
             if slot is not None and self.pose_deltas is not None:
                 cam_params = apply_pose_delta(cam_params, self.pose_deltas[slot])
             return render(state.params, state.alive, cam_params, h, w,
