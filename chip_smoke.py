@@ -68,9 +68,30 @@ exits non-zero):
    .splat from the step-12 checkpoint, and the ``import_ply`` state renders
    the trainer's frame to 2e-4. Prints load, depth (cold and cached), step,
    frame latency, export times, file sizes and peak memory.
+10. Density regularization + MCMC, then meshes: the bench scene in 524,288
+   slots with its own opacities, perturbed colours and 5% of the live
+   splats at opacity logit -7; 12 ``Trainer`` steps with
+   ``densify_strategy="mcmc"`` (refine passes at 4 and 8) and
+   ``regularize_density`` from step 2 (100,000 probe samples; refreshes at
+   2, 5 and 9). The density-start prune removes every splat below opacity
+   0.5, the dimmed ones too, so 5% of the live ones are dimmed again
+   before step 4. Checks: 12 launches each of K1, K2, K3; relocated > 0 at
+   the first pass; three refreshes; the objective (L1 + DSSIM over the 4
+   views) falls from the state the first pass starts from; K1 bit-equal,
+   K2 within 1e-5 x column max and K3 bit-equal, twice, at step 12 with
+   the depth cotangent the density term feeds. Then ``export_cli
+   --filetype OBJ`` from the step-12 checkpoint, marching cubes at 128^3
+   and Poisson at the default depth (a 256^3 grid): each mesh non-empty,
+   faces in range, unit normals where a vertex has one, vertices in the
+   live means' box padded by 10%. Prints each refresh's sampling and KNN
+   times against the KNN's bounds, the KNN's addmm and top-k for one
+   chunk, each pass's relocated / grown / live, loss_density per step,
+   the median step, peak memory and each mesh stage's time.
+   ``--mesh-256`` also exports at the CLI's default ``--resolution 256``.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record (K1-K3's launches
+sum the counted windows of phases 6 and 10, ``launches_by_phase``); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import json
@@ -139,6 +160,14 @@ TRAINER_KW = dict(tile_x=64, dup_capacity=2_000_000, span_capacity=2_000_000,
 # imported PLY renders the trainer's frame to this tolerance.
 DATASET_VIEWS, DATASET_POINTS, DATASET_STEPS = 8, N_SPLATS // 2, 12
 EXPORT_TOL = 2e-4
+# Phase 10: the bench scene trained with SuGaR density regularization (steps
+# 2-12, 100,000 probe samples) and MCMC densify (refine passes at steps 4
+# and 8, every 4 views), then meshed both ways from the step-12 checkpoint.
+# The probe refreshes at step 2 (the window start) and on step % 4 == 1.
+MESH_STEPS, MESH_DIM_SHARE, MESH_SAMPLES, MESH_RESOLUTION = 12, 0.05, 100_000, 128
+# The KNN's operations per (point, slot) pair: p.m (3 multiplies, 3 adds),
+# the -2 and the + ||m||^2 of an addmm.
+KNN_FLOP_PER_PAIR = 8
 
 
 def gpu_name_and_limit() -> str:
@@ -379,9 +408,10 @@ def nbytes(*tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
-def backward_inputs(torch, rc, train, cam, gt, deg, cfg, budgets=RENDER_KW):
+def backward_inputs(torch, rc, train, cam, gt, deg, cfg, budgets=RENDER_KW, depth_loss=None):
     """K1's inputs and output at a training state, and the training loss's
-    own cotangent of K1's output (what K2 receives in that step)."""
+    own cotangent of K1's output (what K2 receives in that step);
+    ``depth_loss(depth)`` adds a term on the rendered depth (H, W)."""
     from tinysplat_torch.ops.ssim import ssim
     from tinysplat_torch.render import splat_inputs
 
@@ -398,6 +428,8 @@ def backward_inputs(torch, rc, train, cam, gt, deg, cfg, budgets=RENDER_KW):
     rgb = torch.clamp(img[..., :3], max=1.0)
     loss = ((1.0 - cfg.lambda_dssim) * (rgb - gt).abs().mean()
             + cfg.lambda_dssim * (1.0 - ssim(rgb, gt)))
+    if depth_loss is not None:
+        loss = loss + depth_loss(img[..., 3])
     (gout,) = torch.autograd.grad(loss, out_g)
     return ti, out, gout
 
@@ -534,15 +566,15 @@ def reduction_layers(rc, rows, entry_rank, n):
     print(f"  of which the sort and bounds (segsum_inputs): device {sort_ms:.4f} ms", flush=True)
 
 
-def write_bench_checkpoint(path, seed=0):
+def write_bench_checkpoint(path, seed=0, n=N_SPLATS):
     """The bench scene as a JAX-layout checkpoint: model/* arrays of the
     compact live-splat snapshot (what save_checkpoint writes)."""
     from tinysplat_torch.data.synthetic import random_gaussian_cloud
     from tinysplat_torch.utils.color import RGB2SH
 
     means, log_scales, quats, colors, opac = random_gaussian_cloud(
-        N_SPLATS, seed=seed, scale_range=(0.002, 0.01))
-    rest = np.random.default_rng(seed + 1).normal(size=(N_SPLATS, 15, 3)) * 0.05
+        n, seed=seed, scale_range=(0.002, 0.01))
+    rest = np.random.default_rng(seed + 1).normal(size=(n, 15, 3)) * 0.05
     np.savez(path, **{
         "model/means": means,
         "model/colors_dc": RGB2SH(colors).astype(np.float32),
@@ -1078,6 +1110,276 @@ def dataset_phase(torch, rc, tt, Config, state, deg, bg, device="cuda", height=H
           f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
 
 
+def read_obj(path):
+    """(vertices, 0-based faces, normals) of an OBJ that export_mesh_obj wrote."""
+    rows = {"v ": [], "vn": [], "f ": []}
+    with open(path) as fh:
+        for line in fh:
+            if line[:2] in rows:
+                rows[line[:2]].append(line[2:].replace("//", " "))
+
+    def table(key, dtype, width):
+        return np.array(" ".join(rows[key]).split(), dtype=dtype).reshape(-1, width)
+
+    return table("v ", np.float64, 3), table("f ", np.int64, 6)[:, ::2] - 1, table(
+        "vn", np.float64, 3)
+
+
+def face_normal_sums(verts, faces):
+    """Per vertex, the sum of its faces' (area-weighted) normals, float64."""
+    v0, v1, v2 = (verts[faces[:, i]] for i in range(3))
+    fn = np.cross(v1 - v0, v2 - v0)
+    acc = np.zeros_like(verts, dtype=np.float64)
+    for i in range(3):
+        np.add.at(acc, faces[:, i], fn)
+    return np.linalg.norm(acc, axis=1)
+
+
+def check_mesh(verts, faces, normals, lo, hi, label):
+    """Raise unless the mesh is non-empty, its faces index its vertices, the
+    normal of every vertex with a defined normal is of unit length, and its
+    vertices lie in the box of the live means padded by 10%. A vertex has
+    no normal when no face uses it (Poisson's support trim can leave some)
+    or its faces have no area (marching tetrahedra at a corner value equal
+    to the iso level); vertex_normals gives those 0 or less than unit
+    length, as the JAX package's does. Returns the counts of both kinds."""
+    if len(verts) == 0 or len(faces) == 0:
+        raise AssertionError(f"{label}: empty mesh")
+    if faces.min() < 0 or faces.max() >= len(verts):
+        raise AssertionError(f"{label}: faces index past the vertices")
+    used = np.zeros(len(verts), bool)
+    used[faces.ravel()] = True
+    defined = used & (face_normal_sums(verts, faces) > 1e-9)
+    norm_err = float(np.abs(np.linalg.norm(normals[defined], axis=1) - 1.0).max())
+    if norm_err > 1e-4:
+        raise AssertionError(f"{label}: normals off unit length by {norm_err:.2e}")
+    pad = 0.1 * (hi - lo)
+    if not ((verts >= lo - pad) & (verts <= hi + pad)).all():
+        raise AssertionError(f"{label}: vertices outside the live means' box + 10%")
+    return int((~used).sum()), int((used & ~defined).sum())
+
+
+def knn_bounds(points, slots, live, k=16):
+    """The KNN of ``points`` query points against ``slots`` means (``live``
+    of them live): (bound ms, by) of the function (inputs read once, the
+    (points, k) int64 indices written once; KNN_FLOP_PER_PAIR per live
+    pair at the FP32 peak), and the ms of writing and reading the (points,
+    slots) float32 block once, which the matmul + top-k route does."""
+    bound, by = kernel_bound(points * 12 + slots * 13, points * k * 8,
+                             points * live * KNN_FLOP_PER_PAIR)
+    return bound, by, points * slots * 4 * 2 / HBM_BYTES_PER_S * 1e3
+
+
+def mesh_objective(torch, tt, state, cfg, cams, device):
+    """The image loss (L1 + DSSIM) of ``state`` over ``cams`` at full
+    resolution over black, averaged."""
+    plain = dataclasses.replace(cfg, regularize_density=False, densify_strategy="default")
+    bg = torch.zeros(3, device=device)
+    losses = []
+    with torch.no_grad():
+        for cam in cams:
+            gt = torch.as_tensor(cam.get_original_image(), device=device)
+            loss, _ = tt.compute_losses(state.params, None, state, cam.params(device), gt, None,
+                                        bg, 1, plain, cam.height, cam.width)
+            losses.append(float(loss))
+    return statistics.mean(losses)
+
+
+def sync(torch, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_phase(torch, rc, tt, Config, gts, device="cuda", height=HEIGHT, width=WIDTH,
+               n=N_SPLATS, samples=MESH_SAMPLES, resolution=MESH_RESOLUTION, poisson_depth=9,
+               budgets=TRAINER_KW, mesh_256=False):
+    """Phase 10: density regularization + MCMC on the bench scene, then the
+    mesh both ways (and at the CLI's default --resolution 256 with
+    ``mesh_256``); see the module docstring. Returns the launches of K1,
+    K2 and K3 in its 12 steps."""
+    from tinysplat_torch import export_cli
+    from tinysplat_torch.data.synthetic import orbit_cameras
+    from tinysplat_torch.io.checkpoint import load_model, save_checkpoint
+    from tinysplat_torch.regularizers.density import density_loss
+    from tinysplat_torch.scene import Scene
+    from tinysplat_torch.train_loop import Trainer
+
+    phase_t0 = time.perf_counter()
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    cams = orbit_cameras(len(gts), width=width, height=height)
+    for cam, gt in zip(cams, gts):
+        cam._image = gt.cpu().numpy()
+    scene = Scene(cams)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "bench_scene.npz")
+        write_bench_checkpoint(ckpt, n=n)
+        start = load_model(ckpt, device=device)
+        rng = np.random.default_rng(7)
+        noise = rng.normal(0.0, 0.1, size=tuple(start.params.colors_dc.shape))
+
+        def dim(state):
+            """MESH_DIM_SHARE of the live splats to opacity logit -7 (numpy draw)."""
+            live = np.nonzero(state.alive.cpu().numpy())[0]
+            picked = rng.choice(live, int(MESH_DIM_SHARE * len(live)), replace=False)
+            with torch.no_grad():
+                state.params.opacities[torch.as_tensor(picked, device=device)] = -7.0
+            return len(picked)
+
+        with torch.no_grad():  # the bench scene's own opacities, perturbed colours
+            start.params.colors_dc += torch.where(
+                start.alive[:, None], torch.as_tensor(noise, dtype=torch.float32, device=device),
+                0.0)
+        dimmed = [dim(start)]
+        cfg = Config(background="black", warmup_grad=0, grad_reduce="mxu",
+                     densify_strategy="mcmc", warmup_densify=4, densify_end=8,
+                     interval_densify=4, regularize_density=True, regularize_density_start=2,
+                     regularize_density_end=MESH_STEPS + 1, density_samples=samples,
+                     max_iter=MESH_STEPS, save_checkpoints=True, checkpoint_interval=MESH_STEPS,
+                     checkpoint_dir=os.path.join(tmp, "ckpt"), **budgets)
+        print(f"phase 10: SuGaR density regularization (steps 2-{MESH_STEPS}, {samples} probe "
+              f"samples) + MCMC densify, {int(start.num_live())} splats in {start.capacity} "
+              f"slots, {height}x{width}, {len(cams)} views, grad_reduce mxu; then OBJ meshes "
+              f"(marching_cubes at {resolution}, poisson at depth {poisson_depth})", flush=True)
+        tr = Trainer(cfg, scene, start)
+        objective = {"start": mesh_objective(torch, tt, tr.state, cfg, cams, device)}
+        ref_path = os.path.join(tmp, "before_refine.npz")
+        kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+        for k in kernels:
+            k.launches = 0
+        step_s, loss_density = [], []
+        for s in range(1, MESH_STEPS + 1):
+            if s == cfg.warmup_densify:
+                # The density-start prune (step 2) removed every splat below
+                # opacity 0.5, the start's dimmed ones with them: dim 5% of
+                # the live ones again, so the first refine pass relocates.
+                dimmed.append(dim(tr.state))
+                save_checkpoint(ref_path, tr.state)  # the objective's reference
+            t0 = time.perf_counter()
+            tr.run(s)
+            sync(torch, device)
+            step_s.append(time.perf_counter() - t0)
+            loss_density.append(float(tr.last_metrics.get("loss_density", float("nan"))))
+        launches = {k.__name__: k.launches for k in kernels}
+        if cuda:
+            check_launches(launches, {k.__name__: MESH_STEPS for k in kernels},
+                           f"phase 10 ({MESH_STEPS} steps)")
+        objective["before the first refine"] = mesh_objective(
+            torch, tt, load_model(ref_path, device=device), cfg, cams, device)
+        objective["end"] = mesh_objective(torch, tt, tr.state, cfg, cams, device)
+        print(f"  launches in the {MESH_STEPS} steps: {launches}; dimmed to logit -7: "
+              f"{dimmed[0]} at the start, {dimmed[1]} before step {cfg.warmup_densify}; "
+              f"loss_density per step {[round(x, 5) for x in loss_density]}", flush=True)
+        for h in tr.densify_history:
+            print(f"  MCMC refine at step {h['step']}: relocated {h['relocated']}, grown "
+                  f"{h['grown']}, live {h['num_live']} in {h['capacity_after']} slots; "
+                  f"{h['seconds']:.4f} s", flush=True)
+        first = tr.densify_history[0] if tr.densify_history else {}
+        if (len(tr.densify_history) != 2 or first["relocated"] <= 0
+                or tr.state.capacity != start.capacity
+                or any(h["num_live"] > start.capacity for h in tr.densify_history)):
+            raise AssertionError(f"phase 10 refine passes: {tr.densify_history}")
+        for p in tr.probe_history:
+            bound, by, block_ms = knn_bounds(p["samples"], tr.state.capacity, p["live"])
+            print(f"  probe refresh at step {p['step']}: {p['samples']} samples of {p['live']} "
+                  f"live splats; sampling {p['sample_s'] * 1e3:.3f} ms, KNN "
+                  f"{p['knn_s'] * 1e3:.3f} ms against a bound of {bound:.4f} ms by {by} "
+                  f"({p['samples']} x {p['live']} pairs x {KNN_FLOP_PER_PAIR} FLOP) and "
+                  f"{block_ms:.3f} ms to write and read the ({p['samples']}, "
+                  f"{tr.state.capacity}) distance block once", flush=True)
+        if [p["step"] for p in tr.probe_history] != [2, 5, 9]:
+            raise AssertionError(f"probe refreshes at {[p['step'] for p in tr.probe_history]}")
+        if cuda:  # the KNN's two torch layers, one chunk of the last probe alone
+            from tinysplat_torch.probes import timed_ms
+            from tinysplat_torch.regularizers.density import KNN_BLOCK_ELEMS
+
+            rows = max(1, KNN_BLOCK_ELEMS // tr.state.capacity)
+            means = tr.state.params.means.detach()
+            pts = tr.density_probe.points[:rows]
+            m_sq = torch.where(tr.state.alive, (means * means).sum(-1), torch.inf)[None]
+            block = torch.addmm(m_sq, pts, means.T, alpha=-2.0)
+            mm_ms = timed_ms(lambda: torch.addmm(m_sq, pts, means.T, alpha=-2.0), 10,
+                             device_only=True)
+            topk_ms = timed_ms(lambda: torch.topk(block, 17, dim=1, largest=False), 10,
+                               device_only=True)
+            chunks = -(-samples // rows)
+            print(f"  KNN layers, one {rows}-row chunk of the last probe (device time, median "
+                  f"of 10): addmm {mm_ms:.4f} ms, top-17 {topk_ms:.4f} ms; x {chunks} chunks "
+                  f"= {(mm_ms + topk_ms) * chunks:.1f} ms a refresh", flush=True)
+        print(f"  objective (L1 + DSSIM over the {len(cams)} views): "
+              f"{ {k: round(v, 6) for k, v in objective.items()} }; host s per step "
+              f"{[round(x, 4) for x in step_s]}, median {statistics.median(step_s):.4f} s"
+              + (f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+                 if cuda else ""), flush=True)
+        if not (np.isfinite(list(objective.values())).all()
+                and objective["end"] < objective["before the first refine"]):
+            raise AssertionError(f"the objective did not fall: {objective}")
+        if not np.isfinite(loss_density[1:]).all():
+            raise AssertionError(f"loss_density {loss_density}")
+
+        # K1 bit for bit, K2 to BWD_TOL and K3 bit for bit, twice, at the
+        # last step, with the cotangent the density term adds to the depth.
+        st, probe = tr.state, tr.density_probe
+        last = scene.get_random_camera(tr.step - 1)
+        cam_p = last.params(device)
+        params = dataclasses.replace(st.params, **{k: t.detach() for k, t in st.params.fields()})
+
+        def dens(depth):
+            return cfg.lambda_density * density_loss(probe, params, depth, cam_p, height, width)
+
+        tb = {k: getattr(tr.cfg, k) for k in budgets}
+        ti, out, gout = backward_inputs(torch, rc, st, cam_p, tr._device_image(
+            last, width, height), int(st.active_sh_degree), tr.cfg, tb, depth_loss=dens)
+        fargs = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy, ti.tile_x)
+        got, ref = rc.composite_fwd(*fargs), rc.composite_fwd_plain(*fargs)
+        sync(torch, device)
+        if not same_bytes(torch, got, ref):
+            raise AssertionError("K1 is not bit-equal to its plain version at step 12")
+        depth_cot = float(gout[:, 3].abs().max())
+        if not depth_cot > 0:
+            raise AssertionError("the density term fed no depth cotangent")
+        compare_backward(torch, rc, ti, out, gout, f"density + mcmc step {tr.step}")
+        print(f"  K1 bit-equal to its plain version at step {tr.step} "
+              f"({int(ti.counts.sum())} entries); the density term's depth cotangent, max "
+              f"|d loss / d depth row| {depth_cot:.3e}", flush=True)
+
+        # The mesh, through the CLI, from the step-12 checkpoint.
+        (ck12,) = [os.path.join(cfg.checkpoint_dir, f) for f in os.listdir(cfg.checkpoint_dir)]
+        means = st.params.means.detach()[st.alive].cpu().numpy()
+        lo, hi = means.min(axis=0), means.max(axis=0)
+        runs = [("marching_cubes", ["--resolution", str(resolution)]),
+                ("poisson", ["--poisson-depth", str(poisson_depth)])]
+        if mesh_256:
+            runs.append(("marching_cubes", []))
+        for alg, flags in runs:
+            out_path = os.path.join(tmp, f"{alg}.obj")
+            rc.composite_fwd.launches = 0
+            t0 = time.perf_counter()
+            summary = export_cli.main(["--filetype", "OBJ", "--device", device,
+                                       "--mesh-extraction-algorithm", alg, *flags, ck12,
+                                       out_path])
+            total = time.perf_counter() - t0
+            verts, faces, normals = read_obj(out_path)
+            if (len(verts), len(faces)) != (summary["vertices"], summary["faces"]):
+                raise AssertionError(f"{alg}: the OBJ holds another mesh than the summary")
+            unused, flat = check_mesh(verts, faces, normals, lo, hi, alg)
+            label = f"{alg} {' '.join(flags) or '(default --resolution 256)'}"
+            extra = ""
+            if alg == "marching_cubes":
+                res = int(flags[1]) if flags else 256
+                bound, by, block_ms = knn_bounds(res ** 3, st.capacity, int(st.num_live()))
+                extra = (f"; grid KNN bound {bound:.3f} ms by {by}, the ({res ** 3}, "
+                         f"{st.capacity}) block once {block_ms:.1f} ms")
+            print(f"  export_cli OBJ {label}: {total:.3f} s ({os.path.getsize(out_path)} bytes); "
+                  f"stages (s) { {k: round(v, 4) for k, v in summary['seconds'].items()} }; "
+                  f"{len(verts)} vertices, {len(faces)} faces ({unused} vertices in no face, {flat} "
+                  f"whose faces have no area); "
+                  f"K1 launches {rc.composite_fwd.launches}{extra}", flush=True)
+    print(f"  phase 10: {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1394,12 +1696,20 @@ def main() -> int:
     # -- 9. the dataset path: COLMAP, depth, viewer, export ----------------------------
     dataset_phase(torch, rc, tt, Config, state, deg, bg)
 
+    # -- 10. density regularization + MCMC, then the mesh ---------------------------------
+    mesh_launches = mesh_phase(torch, rc, tt, Config, gts,
+                               mesh_256="--mesh-256" in sys.argv[1:])
+    by_phase = {name: {"6": train_launches[name] if name != "segsum" else
+                       mxu_launches["segsum"], "10": mesh_launches[name]}
+                for name in mesh_launches}
+
     record = {"kernels": [{
         "name": "composite_fwd",
         "route": "cuda",
         "source": "tinysplat_torch/csrc/composite_fwd.cu",
         "replaces": "tinysplat_tpu/ops/rasterize_pallas.py:781",
-        "launches": train_launches["composite_fwd"],
+        "launches": sum(by_phase["composite_fwd"].values()),
+        "launches_by_phase": by_phase["composite_fwd"],
         "max_abs_err": max_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
@@ -1411,7 +1721,8 @@ def main() -> int:
         "route": "cuda",
         "source": "tinysplat_torch/csrc/composite_bwd.cu",
         "replaces": "tinysplat_tpu/ops/rasterize_pallas.py:900",
-        "launches": train_launches["composite_bwd"],
+        "launches": sum(by_phase["composite_bwd"].values()),
+        "launches_by_phase": by_phase["composite_bwd"],
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
@@ -1423,7 +1734,8 @@ def main() -> int:
         "route": "cuda",
         "source": "tinysplat_torch/csrc/segsum.cu",
         "replaces": "tinysplat_tpu/ops/rasterize_pallas.py:264",
-        "launches": mxu_launches["segsum"],
+        "launches": sum(by_phase["segsum"].values()),
+        "launches_by_phase": by_phase["segsum"],
         "max_abs_err": 0.0,  # held bit for bit (compare_k3)
         "ms": k3_ms,
         "plain_ms": k3_plain_ms,

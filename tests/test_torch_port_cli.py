@@ -1,7 +1,8 @@
 """The port's train CLI (``python -m tinysplat_torch.train_cli``) vs
 ``scripts/train.py``: flag parity with its ``arg_parser`` (loaded by path),
 a synthetic run on the CPU whose checkpoint the JAX package loads, resume
-from it, and the flags whose modules a later slice brings. Datasets,
+from it, an MCMC + density-regularized run, and the flags whose modules a
+later slice brings. Datasets,
 depth and the viewer are tested in test_torch_port_{data,depthest,viewer}.py.
 """
 import importlib.util
@@ -70,11 +71,44 @@ def test_synthetic_run_checkpoint_loads_in_jax_and_resumes(tmp_path):
     assert np.isfinite(resumed.evaluate()["eval_psnr"])
 
 
-@pytest.mark.parametrize("flags,slice_", [(["--regularize-density"], "slice E"),
-                                          (["--densify-strategy", "mcmc"], "slice E"),
+@pytest.mark.parametrize("flags,slice_", [(["--regularize-diffusion"], "item 17"),
+                                          (["--mesh-splat", "2"], "item 16"),
                                           (["--mesh-tile", "2"], "item 16"),
                                           (["--distributed"], "item 16")])
 def test_unported_flags_raise(flags, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         train_cli.main(flags + ["--no-viewer", "--synthetic", "--rasterizer", "dense",
                                 "--device", "cpu"])
+
+
+def test_mcmc_density_run_through_the_cli(tmp_path):
+    """--densify-strategy mcmc --regularize-density train on the CPU from a
+    checkpoint whose opacities are trained-like (logits U(-1, 3): the
+    density-start prune removes every splat below 0.5, which a fresh
+    init's 0.1 would leave none of): the prune and a probe refresh at
+    step 2, a refresh at 6 (step % 5 == 1), the refine pass at step 10 (the
+    camera-count interval)."""
+    import torch
+
+    from tinysplat_torch.data.synthetic import synthetic_pcd
+    from tinysplat_torch.models.gaussians import init_from_pcd
+
+    pcd = synthetic_pcd(400, seed=1)
+    state = init_from_pcd(pcd.xyz, pcd.colors, sh_degree=3, capacity=512, device="cpu")
+    with torch.no_grad():
+        state.params.opacities[:400] = torch.as_tensor(
+            np.random.default_rng(0).uniform(-1.0, 3.0, (400, 1)), dtype=torch.float32)
+    ck = str(tmp_path / "start.npz")
+    tck.save_checkpoint(ck, state)
+    tr = train_cli.main(["--train", "--no-viewer", "--synthetic", "--device", "cpu",
+                         "--rasterizer", "dense", "--load-checkpoint", ck, "--max-iter", "10",
+                         "--densify-strategy", "mcmc", "--regularize-density",
+                         "--regularize-density-start", "2", "--regularize-density-end", "12",
+                         "--density-samples", "2000", "--interval-densify", "5",
+                         "--warmup-densify", "5", "--densify-end", "12"])
+    assert tr.step == 10
+    assert [p["step"] for p in tr.probe_history] == [2, 6]
+    assert tr.probe_history[0]["live"] < 400  # the density-start prune
+    assert [h["step"] for h in tr.densify_history] == [10]
+    assert tr.densify_history[0]["grown"] > 0 and tr.state.capacity == 512
+    assert np.isfinite(float(tr.last_metrics["loss_density"]))

@@ -295,3 +295,56 @@ def test_p2_op_costs_match_plain(op):
         one = op_costs.probe_op_costs(op, x, 1)
         assert float(one.abs().max()) > 0.1
         assert op_costs.rel_err(one, op_costs.probe_op_costs_plain(op, x, 1)) <= tol
+
+
+# -- slice E on the card: the KNN and the Poisson solve stay on the device ------------
+
+
+@pytest.mark.cuda
+def test_knn_on_the_card_equals_the_cpu_with_ties():
+    """The chunked KNN on CUDA tensors against the CPU's: neighbour
+    distances (float64, sorted) to 1e-5 relative (cuBLAS and the CPU round
+    the products differently, so near ties may swap), and copies of one
+    splat (exact ties) resolved to the lower indices: a chosen copy's live
+    lower-indexed twins are chosen too."""
+    _need_card()
+    from tinysplat_torch.regularizers.density import knn_indices
+
+    rng = np.random.default_rng(3)
+    means = rng.normal(size=(3000, 3)).astype(np.float32) + 5.0
+    means[2000:2400] = np.repeat(means[:100], 4, axis=0)  # 4 copies each of 100
+    alive = rng.uniform(size=3000) > 0.1
+    pts = np.concatenate([means[:100] + 0.01, rng.normal(size=(900, 3)) + 5.0]).astype(
+        np.float32)
+    args = [torch.from_numpy(x) for x in (pts, means, alive)]
+    want = knn_indices(*args, k=16, chunk=128)
+    got = knn_indices(*(x.cuda() for x in args), k=16, chunk=128)
+    assert got.is_cuda
+    got = got.cpu().numpy()
+
+    def dists(idx):
+        return np.sort(np.linalg.norm(pts[:, None].astype(np.float64) - means[idx], axis=-1), 1)
+
+    np.testing.assert_allclose(dists(got), dists(want.numpy()), rtol=1e-5)
+    group = np.arange(3000)
+    group[2000:2400] = np.repeat(np.arange(100), 4)  # copy -> its original
+    for row in got:
+        for j in row:
+            twins = np.nonzero((group == group[j]) & alive & (np.arange(3000) < j))[0]
+            assert set(twins) <= set(row), (row, j, twins)
+
+
+@pytest.mark.cuda
+def test_poisson_solve_stays_on_the_card():
+    _need_card()
+    from tinysplat_torch import poisson
+
+    p = np.random.default_rng(0).normal(size=(3000, 3))
+    p = torch.as_tensor(p / np.linalg.norm(p, axis=1, keepdims=True) * 0.7,
+                        dtype=torch.float32, device="cuda")
+    chi, origin, _, iso = poisson.solve_indicator(p, p / p.norm(dim=1, keepdim=True),
+                                                  resolution=32)
+    assert chi.is_cuda and origin.is_cuda and np.isfinite(iso)
+    cpu = poisson.solve_indicator(p.cpu(), (p / p.norm(dim=1, keepdim=True)).cpu(),
+                                  resolution=32)[0]
+    assert float((chi.cpu() - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())

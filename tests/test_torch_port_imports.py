@@ -66,6 +66,18 @@ def test_slice_d_modules_import_no_jax(module):
     importlib.import_module(f"tinysplat_torch.{module}")
 
 
+SLICE_E_MODULES = ("regularizers", "regularizers.density", "models.densify_mcmc", "mesh",
+                   "poisson", "semantic")
+
+
+@pytest.mark.parametrize("module", SLICE_E_MODULES)
+def test_slice_e_modules_import_no_jax(module):
+    """The density regularizer, MCMC, mesh extraction, Poisson and the
+    semantic sidecar: torch / numpy ports, never imports of the JAX
+    package (semantic.py is a copy of a numpy-only module)."""
+    test_slice_d_modules_import_no_jax(module)
+
+
 def test_cuda_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -103,6 +115,13 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         export_cli.main(["--filetype", "SPLAT", path, str(tmp_path / "m.splat")])
     assert not (tmp_path / "m.splat").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        export_cli.main(["--filetype", "OBJ", path, str(tmp_path / "m.obj")])
+    assert not (tmp_path / "m.obj").exists()
+    from tinysplat_torch import poisson
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        poisson.reconstruct(np.random.default_rng(0).normal(size=(40, 3)))
 
 
 def test_every_module_imports_without_nvcc():
@@ -111,7 +130,7 @@ def test_every_module_imports_without_nvcc():
 
     names = [m.name for m in pkgutil.walk_packages(tt.__path__, "tinysplat_torch.")]
     for new in ("models.densify", "train_loop", "train_cli", "io.checkpoint",
-                "probes.bitcast", "probes.op_costs") + SLICE_D_MODULES:
+                "probes.bitcast", "probes.op_costs") + SLICE_D_MODULES + SLICE_E_MODULES:
         assert f"tinysplat_torch.{new}" in names
     for name in names:
         importlib.import_module(name)

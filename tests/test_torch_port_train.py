@@ -225,21 +225,34 @@ def test_compute_losses_regularizers_match_jax():
             np.testing.assert_allclose(float(at[k]), float(aj[k]), rtol=1e-5, err_msg=k)
 
 
-@pytest.mark.parametrize("option", [dict(regularize_density=True),
-                                    dict(densify_strategy="mcmc")])
+@pytest.mark.parametrize("option", [dict(regularize_diffusion=True), dict(mesh_tile=2)])
 def test_unported_options_raise(option):
+    """The step itself needs neither option; the trainer (diffusion views,
+    item 17) and the CLI (multi-device, item 16) refuse them. The density
+    regularizer and MCMC are ported: tests/test_torch_port_mcmc.py."""
+    from tinysplat_torch import train_cli
+    from tinysplat_torch.train_loop import Trainer
+
+    cfg = Config(**option)
+    tt.make_train_step(cfg, H, W)
     with pytest.raises(NotImplementedError, match="later slice"):
-        tt.make_train_step(Config(**option), H, W)
+        if cfg.regularize_diffusion:
+            Trainer(cfg, None, tt.from_jax_params(_leaves(), "cpu"))
+        else:
+            train_cli.check_flags(cfg)
 
 
 def test_unported_loss_arguments_raise():
+    """Every loss argument is ported now: a density probe enters the loss
+    only under cfg.regularize_density (tests/test_torch_port_mcmc.py)."""
     state = tt.from_jax_params(_leaves(), "cpu")
     args = (state.params, None, state, _cam(), torch.zeros(H, W, 3), None, torch.zeros(3), 0,
             Config(), H, W)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tt.compute_losses(*args, density_probe=object())
+    unused, aux = tt.compute_losses(*args, density_probe=object())
+    assert "loss_density" not in aux
     # pose_delta / app_params are ported: zero deltas are the identity.
     base, _ = tt.compute_losses(*args)
+    assert torch.equal(base, unused)
     posed, _ = tt.compute_losses(*args, pose_delta=torch.zeros(6), app_params=torch.zeros(12))
     assert torch.equal(base, posed)
 

@@ -19,7 +19,11 @@ counterparts of the JAX package's two kernel probes (``probes``); and the
 data path: COLMAP and Blender datasets (``data``), SfM-depth
 regularization (``depthest``), PLY / .splat export (``io.export``,
 ``python -m tinysplat_torch.export_cli``) and the live viewer beside a
-running trainer (``viewer``, ``Trainer.run_async``).
+running trainer (``viewer``, ``Trainer.run_async``); SuGaR density
+regularization (``regularizers``), 3DGS-MCMC densification
+(``models.densify_mcmc``) and mesh extraction to OBJ (``mesh``,
+``poisson``, ``export_cli --filetype OBJ``), and the semantic sidecar
+(``semantic``).
 """
 
 from .cameras import Camera, CameraParams

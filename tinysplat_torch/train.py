@@ -25,9 +25,13 @@ own (metrics stay device tensors, the step count is a host int).
 - Densify, growth and compaction keep the optimizer valid: in-place edits
   go through ``GaussianAdam.moment_pairs``, new tensors through
   ``GaussianAdam.carried`` (``models/densify.py``, ``models/gaussians.py``).
-
-Not ported yet (raise NotImplementedError): the SuGaR density regularizer
-and the MCMC densify strategy's noise step (slice E).
+- ``regularize_density``: the SuGaR density term against the trainer's
+  cached ``DensityProbe`` (``regularizers/density.py``) reaches the
+  compositing backward through the depth channel of the render and the
+  scales through ``probe_beta``.
+- ``densify_strategy="mcmc"``: after Adam, the means get the MCMC position
+  noise (``models/densify_mcmc.inject_noise``), scaled by
+  ``mcmc_noise_lr`` x the step's means learning rate.
 """
 from __future__ import annotations
 
@@ -232,9 +236,6 @@ def compute_losses(
     app_params=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Total loss + aux dict (the JAX package's loss stack)."""
-    if density_probe is not None:
-        raise _not_ported("the SuGaR density regularizer", "regularizers/density.py",
-                          "slice E")
     if pose_delta is not None:  # pose_opt: refine the view by an SE(3) delta
         camera = apply_pose_delta(camera, pose_delta)
     rgb, extras = render(
@@ -280,6 +281,17 @@ def compute_losses(
         loss = loss + gate * cfg.lambda_opacity * loss_opacity
         aux["loss_opacity"] = loss_opacity
 
+    # SuGaR density / SDF term against the cached probe.
+    if cfg.regularize_density and density_probe is not None:
+        from .regularizers.density import density_loss
+
+        gate = _schedule_gate(True, cfg.regularize_density_start,
+                              cfg.regularize_density_end, step)
+        loss_density = density_loss(density_probe, params, extras["depth"], camera,
+                                    img_height, img_width, use_sdf=cfg.regularize_sdf)
+        loss = loss + gate * cfg.lambda_density * loss_density
+        aux["loss_density"] = loss_density
+
     if cfg.densify_strategy == "mcmc":  # 3DGS-MCMC sparsity regularizers
         n_live = torch.clamp(state.alive.sum(), min=1)
         if cfg.lambda_mcmc_opacity > 0:
@@ -300,23 +312,26 @@ def make_train_step(cfg: Config, img_height: int, img_width: int):
     """Build the train step for a given image shape.
 
     ``train_step(state, opt_state, camera, gt_image, est_depth, step,
-    generator=None, background=None, pose_delta=None, app_params=None)``
-    runs one step and returns a ``StepOutput``. ``opt_state`` is the
-    optimizer of ``state``'s parameters (``init_opt_state`` /
-    ``opt_state_from_jax``), which it updates in place. ``background``
-    overrides the cfg's background (tests pass the JAX package's draw);
-    ``generator`` draws the random one. Under ``cfg.pose_opt`` /
-    ``cfg.app_opt`` a given ``pose_delta`` (6,) / ``app_params`` (12,)
-    enters the loss and its gradient is returned in the metrics.
+    generator=None, background=None, pose_delta=None, app_params=None,
+    density_probe=None, noise_eps=None)`` runs one step and returns a
+    ``StepOutput``. ``opt_state`` is the optimizer of ``state``'s
+    parameters (``init_opt_state`` / ``opt_state_from_jax``), which it
+    updates in place. ``background`` overrides the cfg's background (tests
+    pass the JAX package's draw); ``generator`` draws the random one, and
+    the MCMC noise when ``noise_eps`` (C, 3) is not given. Under
+    ``cfg.pose_opt`` / ``cfg.app_opt`` a given ``pose_delta`` (6,) /
+    ``app_params`` (12,) enters the loss and its gradient is returned in
+    the metrics; under ``cfg.regularize_density`` a given ``density_probe``
+    enters the loss.
     """
-    check_ported(cfg)
-
     def train_step(state: GaussianState, opt_state: GaussianAdam, camera: CameraParams,
                    gt_image: torch.Tensor, est_depth: Optional[torch.Tensor], step: int,
                    generator: Optional[torch.Generator] = None,
                    background: Optional[torch.Tensor] = None,
                    pose_delta: Optional[torch.Tensor] = None,
-                   app_params: Optional[torch.Tensor] = None) -> StepOutput:
+                   app_params: Optional[torch.Tensor] = None,
+                   density_probe=None,
+                   noise_eps: Optional[torch.Tensor] = None) -> StepOutput:
         step = int(step)
         for (name, t), group in zip(state.params.fields(), opt_state.param_groups):
             if group["params"][0] is not t:
@@ -340,9 +355,20 @@ def make_train_step(cfg: Config, img_height: int, img_width: int):
         opt_state.zero_grad(set_to_none=True)
         loss, aux = compute_losses(state.params, probe, state, camera, gt_image, est_depth,
                                    background, step, cfg, img_height, img_width,
-                                   pose_delta=pose, app_params=app)
+                                   density_probe=density_probe, pose_delta=pose,
+                                   app_params=app)
         loss.backward()
         opt_state.step()
+        if cfg.densify_strategy == "mcmc":
+            from .models import densify_mcmc
+
+            lr_scaler = cfg.mcmc_noise_lr * means_lr_at(cfg, step)
+            if noise_eps is None:
+                densify_mcmc.inject_noise(state.params, state.alive, lr_scaler, cfg,
+                                          generator)
+            else:
+                densify_mcmc.apply_noise(state.params, state.alive, noise_eps, lr_scaler,
+                                         cfg)
 
         # Densification signal: ||dL/d(screen xy)|| past the warm-up.
         accum = state.means_grad_accum
@@ -357,8 +383,8 @@ def make_train_step(cfg: Config, img_height: int, img_width: int):
             "psnr": psnr(aux["rgb"].detach(), gt_image),
             "num_live": new_state.num_live(),
         }
-        for k in ("loss_depth", "loss_opacity", "n_intersections", "n_dup_dropped",
-                  "n_tile_dropped"):
+        for k in ("loss_depth", "loss_opacity", "loss_density", "n_intersections",
+                  "n_dup_dropped", "n_tile_dropped"):
             if k in aux:
                 v = aux[k]
                 metrics[k] = v.detach() if torch.is_tensor(v) else v
@@ -370,10 +396,3 @@ def make_train_step(cfg: Config, img_height: int, img_width: int):
 
     return train_step
 
-
-def check_ported(cfg: Config) -> None:
-    """Raise for the options whose modules a later slice brings."""
-    if cfg.regularize_density:
-        raise _not_ported("regularize_density", "regularizers/density.py", "slice E")
-    if cfg.densify_strategy == "mcmc":
-        raise _not_ported('densify_strategy="mcmc"', "models/densify_mcmc.py", "slice E")

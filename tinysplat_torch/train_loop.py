@@ -8,7 +8,14 @@ Torch port of ``tinysplat_tpu.train_loop``. What stays on the host:
 - the coarse-to-fine resolution schedule and its intrinsics scaling;
 - the densify / prune cadence, with capacity growth when densification
   runs out of free slots (grow, then redo the pass), periodic compaction
-  and the opacity reset;
+  and the opacity reset; under ``densify_strategy="mcmc"`` the refine pass
+  is ``relocate_and_grow`` instead, and capacity never grows, compaction
+  and the opacity reset are skipped;
+- the density-probe refresh of ``regularize_density``: at the window start
+  the splats below opacity 0.5 are pruned; the probe (sample points, their
+  KNN) is rebuilt at the start, on every step with
+  ``step % cfg.interval_densify == 1`` and whenever it was dropped
+  (compaction permutes rows, so it drops the probe);
 - the per-camera pose / appearance Adams of ``pose_opt`` / ``app_opt``;
 - the binning-budget retune, the NaN guard (snapshot and rollback), sync and
   async checkpoints, held-out evaluation and a ``torch.profiler`` window;
@@ -25,9 +32,9 @@ boundaries. Densify, prune and the opacity reset edit the parameter tensors
 and Adam moments in place; growth, compaction and a rollback make new
 tensors and rebuild the optimizer (``GaussianAdam.carried``).
 
-Not ported yet (raise NotImplementedError): the density-probe refresh,
-diffusion views and ``densify_strategy="mcmc"`` (slice E) and
-``MeshTrainer`` (ROADMAP Queue 1 item 16).
+Not ported yet (raise NotImplementedError): the diffusion views of
+``regularize_diffusion`` (ROADMAP Queue 1 item 17) and ``MeshTrainer``
+(item 16).
 """
 from __future__ import annotations
 
@@ -44,14 +51,15 @@ import torch
 
 from .cameras import Camera, apply_pose_delta
 from .config import Config
-from .models.densify import densify_and_prune, reset_opacities
+from .models.densify import densify_and_prune, prune_by_mask, reset_opacities
+from .models.densify_mcmc import relocate_and_grow
 from .models.gaussians import GaussianParams, GaussianState, compact_state, grow_capacity
 from .ops.ssim import psnr, ssim
+from .regularizers.density import make_density_probe
 from .render import render
 from .scene import Scene
 from .train import (
     _not_ported,
-    check_ported,
     fixed_background,
     init_opt_state,
     make_train_step,
@@ -166,10 +174,9 @@ class Trainer:
 
     def __init__(self, cfg: Config, scene: Scene, state: GaussianState, opt_state=None,
                  start_step: int = 0, rng_state: Optional[torch.Tensor] = None):
-        check_ported(cfg)
         if cfg.regularize_diffusion:
             raise _not_ported("regularize_diffusion", "regularizers/diffusion_guidance.py",
-                              "slice E")
+                              "item 17")
         self.cfg = cfg
         self.scene = scene
         self.state = state
@@ -178,7 +185,8 @@ class Trainer:
         self.device = state.alive.device
         self.opt_state = opt_state if opt_state is not None else init_opt_state(cfg, state)
         self.step = start_step
-        # Background draws and densify split draws; checkpoints carry its state.
+        # Background, densify split, MCMC and density-probe draws;
+        # checkpoints carry its state.
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         if rng_state is not None:
             self.generator.set_state(rng_state)
@@ -199,6 +207,8 @@ class Trainer:
         self.last_rendered = None
         self.last_metrics: Dict[str, object] = {}  # the last step's, device tensors
         self.densify_history: List[dict] = []
+        self.density_probe = None
+        self.probe_history: List[dict] = []  # per refresh: step, samples, live, seconds
         self.eval_cameras: List[Camera] = []
         self._last_diag = None  # (intersections, dup_dropped, tile_dropped)
         self._no_shrink_until = 0  # hysteresis after a budget grow
@@ -314,10 +324,21 @@ class Trainer:
             return
         if step % self.interval_densify != 0:
             return
-        cam = self.scene.cameras[0]
-        max_dim = max(cam.width, cam.height)
         cap_before = self.state.capacity
         t0 = time.perf_counter()
+        if cfg.densify_strategy == "mcmc":
+            # Relocation instead of clone / split / prune: the capacity is
+            # the cap, so nothing overflows and nothing grows.
+            self.state, self.opt_state, stats = relocate_and_grow(
+                self.state, self.opt_state, cfg, generator=self.generator)
+            self.densify_history.append(dict(stats, step=step, overflow=0,
+                                             capacity_before=cap_before,
+                                             capacity_after=cap_before,
+                                             seconds=time.perf_counter() - t0))
+            log.debug("mcmc refine step %d: %s", step, self.densify_history[-1])
+            return
+        cam = self.scene.cameras[0]
+        max_dim = max(cam.width, cam.height)
         args = (self.interval_densify, max_dim, cfg)
         self.state, self.opt_state, stats = densify_and_prune(
             self.state, self.opt_state, *args, generator=self.generator,
@@ -346,12 +367,38 @@ class Trainer:
         cfg = self.cfg
         if cfg.compact_interval <= 0 or self.step % cfg.compact_interval != 0:
             return
+        if cfg.densify_strategy == "mcmc":
+            return  # the capacity is MCMC's growth ceiling: never shrunk
         old_cap = self.state.capacity
         self.state, self.opt_state, did = compact_state(self.state, self.opt_state,
                                                         margin=cfg.compact_margin)
         if did:
             log.info("compacted capacity %d -> %d (%d live)", old_cap, self.state.capacity,
                      int(self.state.num_live()))
+            # Compaction permutes the rows: the probe's KNN indices would
+            # point at other splats, so it is rebuilt at the next step.
+            self.density_probe = None
+
+    def _maybe_refresh_density_probe(self) -> None:
+        """At the window start, prune sigmoid(opacity) < 0.5; rebuild the
+        probe at the start, on ``step % cfg.interval_densify == 1`` (the raw
+        flag, not the camera-count interval of the densify pass) and when
+        it was dropped."""
+        cfg, step = self.cfg, self.step
+        if not (cfg.regularize_density
+                and cfg.regularize_density_start <= step < cfg.regularize_density_end):
+            return
+        start = step == cfg.regularize_density_start
+        if start:
+            faint = torch.sigmoid(self.state.params.opacities[:, 0]) < 0.5
+            self.state, self.opt_state = prune_by_mask(self.state, self.opt_state, faint)
+        if start or step % max(cfg.interval_densify, 1) == 1 or self.density_probe is None:
+            timings: Dict[str, float] = {}
+            self.density_probe = make_density_probe(
+                self.state.params, self.state.alive, num_samples=cfg.density_samples,
+                generator=self.generator, timings=timings)
+            self.probe_history.append(dict(timings, step=step, samples=cfg.density_samples,
+                                           live=int(self.state.num_live())))
 
     # -- main loop --------------------------------------------------------------------
 
@@ -363,6 +410,7 @@ class Trainer:
     def _train_step(self) -> None:
         cfg = self.cfg
         self.step += 1
+        self._maybe_refresh_density_probe()
         # 0-based sample index: step was just incremented.
         camera = self.scene.get_random_camera(self.step - 1)
         h, w = self._c2f_dims(camera)
@@ -381,7 +429,8 @@ class Trainer:
         cam_params = self._scale_cam_params(camera.params(self.device), camera, h, w)
         out = make_train_step(cfg, h, w)(
             self.state, self.opt_state, cam_params, gt, est_depth, self.step,
-            generator=self.generator, pose_delta=pose_delta, app_params=app_param)
+            generator=self.generator, pose_delta=pose_delta, app_params=app_param,
+            density_probe=self.density_probe)
         self.state, self.opt_state = out.state, out.opt_state
         self.last_rendered = out.rendered
         self.last_metrics = dict(out.metrics)
@@ -407,7 +456,8 @@ class Trainer:
         self._maybe_compact()
         self._maybe_retune_budgets()
         if (cfg.interval_opacity_reset > 0 and self.step % cfg.interval_opacity_reset == 0
-                and self.step <= cfg.densify_end):
+                and self.step <= cfg.densify_end
+                and cfg.densify_strategy != "mcmc"):  # MCMC regulates opacity itself
             self.state, self.opt_state = reset_opacities(self.state, cfg.epsilon_alpha,
                                                          opt_state=self.opt_state)
         # Host syncs are cadenced, never per step.

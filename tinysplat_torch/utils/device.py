@@ -1,5 +1,9 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and stage timing."""
 from __future__ import annotations
+
+import contextlib
+import time
+from typing import Iterator, Optional
 
 import torch
 
@@ -14,3 +18,22 @@ def resolve_device(device) -> torch.device:
             f"device {str(device)!r} asked for, but torch sees no CUDA device; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def timed(timings: Optional[dict], name: str, device) -> Iterator[None]:
+    """Add the seconds of the enclosed stage to ``timings[name]``, the
+    device synchronized at its end; does nothing when ``timings`` is None."""
+    if timings is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    yield
+    synchronize(device)
+    timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
