@@ -88,10 +88,30 @@ exits non-zero):
    chunk, each pass's relocated / grown / live, loss_density per step,
    the median step, peak memory and each mesh stage's time.
    ``--mesh-256`` also exports at the CLI's default ``--resolution 256``.
+11. Multi-device training on ``torch.distributed``: the bench scene at
+   1600x1024 (1066 cut to a multiple of 64, so that 2 and 4 bands of whole
+   16-px tile rows divide it) on a (2, 2) mesh of 4 ranks started by
+   ``parallel.local.run``. The ranks share the one card, so they run gloo
+   with the collectives staged through pinned host memory; the times are
+   time-sliced, not scaling figures. Interleaved bands of 32 tile-row
+   groups; 2 cameras a step. Each rank renders 4 orbit frames through
+   ``make_sharded_render`` (held to the one-device ``render`` to 2e-5);
+   then ``MeshTrainer`` trains 8 steps from phase 6's start in 262,144
+   slots, densify at step 4 (every live splat cloned: the capacity grows
+   to 786,432 and re-shards) and a sharded checkpoint at step 8, which
+   this process restores alone (bit-equal). A 1-rank world (NCCL, mesh
+   (1, 1), batch 2) trains the same 8 steps, held to the 4 ranks at the
+   1-vs-N bar of the JAX suite. On rank 0's band at the last step K1 (bit
+   for bit), K2 (1e-5 x column max, twice the same bytes) and K3 (bit for
+   bit) are held against their plain versions. Prints step ms per rank,
+   each collective's seconds (parameter gather, attribute gather,
+   reduce-scatter, SSIM halo, psum, and the host staging inside them) and
+   the phase's seconds.
 
 The line before the last is the kernels' JSON record (K1-K3's launches
-sum the counted windows of phases 6 and 10, ``launches_by_phase``); the
-last line is ``{"ok": true, "device": {...}}``.
+sum the counted windows of phases 6, 10 and 11, ``launches_by_phase``;
+phase 11's sum the four ranks' training windows); the last line is
+``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import json
@@ -168,6 +188,15 @@ MESH_STEPS, MESH_DIM_SHARE, MESH_SAMPLES, MESH_RESOLUTION = 12, 0.05, 100_000, 1
 # The KNN's operations per (point, slot) pair: p.m (3 multiplies, 3 adds),
 # the -2 and the + ||m||^2 of an addmm.
 KNN_FLOP_PER_PAIR = 8
+# Phase 11: a (2, 2) mesh of 4 ranks on the card, 1600x1024 (1066 cut to a
+# multiple of 64), 2 cameras a step, interleaved bands; 8 MeshTrainer steps
+# with a densify at step 4 that clones every live splat (tau_means 0, no
+# split) into no free slots: 262,144 -> 786,432 slots, re-sharded.
+SHARD_HEIGHT, SHARD_MESH, SHARD_STEPS, SHARD_FRAMES = 1024, (2, 2), 8, 4
+SHARD_TOL = 2e-5  # sharded vs one-device frames (the JAX suite's tolerance)
+# The JAX suite's 1-vs-N bar (tests/test_parallel.py:104-125).
+LRS = {"means": 0.00016, "scales": 0.005, "quats": 0.001, "opacities": 0.05,
+       "colors_dc": 0.0025}
 
 
 def gpu_name_and_limit() -> str:
@@ -1380,6 +1409,241 @@ def mesh_phase(torch, rc, tt, Config, gts, device="cuda", height=HEIGHT, width=W
     return launches
 
 
+def shard_start(torch, device):
+    """Phase 6's start (the bench scene, opacity logits -1, colours + N(0,
+    0.1)) in exactly its 262,144 slots, so the first densify overflows."""
+    from tinysplat_torch.io.checkpoint import load_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "bench_scene.npz")
+        write_bench_checkpoint(ckpt)
+        state = load_model(ckpt, capacity=N_SPLATS, device=device)
+    noise = np.random.default_rng(7).normal(0.0, 0.1, size=tuple(state.params.colors_dc.shape))
+    with torch.no_grad():
+        live = state.alive[:, None]
+        state.params.opacities[:] = torch.where(live, -1.0, state.params.opacities)
+        state.params.colors_dc += torch.where(
+            live, torch.as_tensor(noise, dtype=torch.float32, device=device), 0.0)
+    return state
+
+
+def shard_cfg(Config, ckpt_dir):
+    return Config(background="black", warmup_grad=0, grad_reduce="mxu", tau_means=0.0,
+                  densify_scale_thresh=1e9, warmup_densify=TRAIN_VIEWS,
+                  densify_end=TRAIN_VIEWS, interval_opacity_reset=0, save_checkpoints=True,
+                  checkpoint_interval=SHARD_STEPS, checkpoint_dir=ckpt_dir,
+                  max_iter=SHARD_STEPS, **TRAINER_KW)
+
+
+def shard_rank(mesh_shape, batch, ckpt_dir, scene, frame_cams):
+    """One rank of phase 11 (run by ``parallel.local.run``): the sharded
+    frames, then ``MeshTrainer``; on rank 0 of a mesh with bands, K1-K3 vs
+    their plain versions on its band at the last step."""
+    import torch
+
+    from tinysplat_torch.config import Config
+    from tinysplat_torch.io.checkpoint import load_model
+    from tinysplat_torch.ops import rasterize_cuda as rc
+    from tinysplat_torch.parallel import MeshTrainer, collectives, make_mesh, rank_device
+    from tinysplat_torch.parallel.sharding import gather_state, shard_state
+    from tinysplat_torch.parallel.train_step import make_sharded_render
+    from tinysplat_torch.render import splat_inputs
+
+    dev = rank_device()
+    mesh = make_mesh(*mesh_shape)
+    kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+    out = {"rank": mesh.rank}
+    height = SHARD_HEIGHT
+    if frame_cams:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "bench_scene.npz")
+            write_bench_checkpoint(ckpt)
+            serve, _ = shard_state(mesh, load_model(ckpt, device=dev))
+        fn = make_sharded_render(Config(**TRAINER_KW), height, WIDTH, mesh)
+        bg = torch.zeros(3, device=dev)
+        for k in kernels:
+            k.launches = 0
+        frames, frame_ms = [], []
+        for cam in frame_cams:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rgb, depth, alpha = fn(serve.params, serve.alive, serve.active_sh_degree,
+                                   cam.params(dev), bg)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            frames.append(tuple(x.cpu().numpy() for x in (rgb, depth, alpha)))
+        out.update(frame_launches=rc.composite_fwd.launches, frame_ms=frame_ms,
+                   frames=frames if mesh.rank == 0 else None)
+        del serve
+    tr = MeshTrainer(shard_cfg(Config, ckpt_dir), scene, shard_start(torch, dev), mesh=mesh)
+    # The 1-rank reference world takes the 4-rank mesh's cameras a step
+    # (one per data group there); the step is built at the first step.
+    tr.batch = batch
+    for k in kernels:
+        k.launches = 0
+    collectives.timings = {}
+    step_ms, metrics = [], []
+    for s in range(1, SHARD_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run(s)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in tr.last_metrics.items()})
+    out.update(step_ms=step_ms, metrics=metrics, collectives=collectives.timings,
+               launches={k.__name__: k.launches for k in kernels},
+               history=tr.densify_history, capacity=tr._global_capacity(),
+               shard={name: t.detach().cpu().numpy() for name, t in tr.state.params.fields()},
+               alive=tr.state.alive.cpu().numpy(),
+               accum=tr.state.means_grad_accum.cpu().numpy(),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    collectives.timings = None
+    if mesh.size > 1:
+        full, _ = gather_state(mesh, tr.state, tr.opt_state)  # collective
+        if mesh.rank == 0:
+            cam = scene.get_random_camera((tr.step - 1) * batch)  # data group 0's first
+            cfg = tr.cfg
+            with torch.no_grad():
+                s = splat_inputs(full.params, full.alive, cam.params(dev), height, WIDTH,
+                                 full.active_sh_degree, torch.zeros(3, device=dev))
+                ti = rc.tile_inputs(s.xys, s.proj.depths, s.proj.radii, s.proj.conics,
+                                    s.colors4, s.opacities, s.valid, height // mesh.tile,
+                                    WIDTH, tile_x=cfg.tile_x, dup_capacity=cfg.dup_capacity,
+                                    span_capacity=cfg.span_capacity,
+                                    max_per_tile=cfg.max_per_tile, row_stride=mesh.tile,
+                                    row_offset=0)
+            label = f"rank 0's band (tile rows 0, {mesh.tile}, ...) at step {tr.step}"
+            fargs = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy,
+                     ti.tile_x)
+            k1_err, k1_out = compare_kernel(torch, rc, fargs, label)
+            k2_err, _ = compare_backward(torch, rc, ti, k1_out,
+                                         random_cotangent(torch, k1_out, 11), label)
+            out.update(k1_err=k1_err, k2_err=k2_err)
+    return out
+
+
+def shard_phase(torch, Config):
+    """Phase 11: see the module docstring. Returns the K1-K3 launches of
+    the 4 ranks' training windows."""
+    import chip_smoke  # the ranks import this file by its module name, not as __main__
+    from tinysplat_torch.data.synthetic import orbit_cameras
+    from tinysplat_torch.io.checkpoint import load_model, restore_checkpoint_sharded
+    from tinysplat_torch.parallel import local
+    from tinysplat_torch.render import render
+    from tinysplat_torch.scene import Scene
+
+    phase_t0 = time.perf_counter()
+    height, n_ranks = SHARD_HEIGHT, SHARD_MESH[0] * SHARD_MESH[1]
+    print(f"phase 11: {SHARD_MESH} mesh of {n_ranks} ranks on one card (gloo, host-staged "
+          f"collectives), {N_SPLATS} splats, {height}x{WIDTH}, interleaved bands, "
+          f"{SHARD_MESH[0]} cameras a step; {gpu_name_and_limit()}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "bench_scene.npz")
+        write_bench_checkpoint(ckpt)
+        serve = load_model(ckpt, device="cuda")
+    bg = torch.zeros(3, device="cuda")
+    deg = serve.active_sh_degree
+    views = orbit_cameras(TRAIN_VIEWS, width=WIDTH, height=height)
+    frame_cams = orbit_cameras(SHARD_FRAMES, width=WIDTH, height=height)
+    with torch.no_grad():
+        for cam in views:
+            cam._image = render(serve.params, serve.alive, cam.params("cuda"), height, WIDTH,
+                                deg, bg, **TRAINER_KW)[0].cpu().numpy()
+        refs = [tuple(x.cpu().numpy() for x in (r[0], r[1]["depth"], r[1]["alpha"]))
+                for r in (render(serve.params, serve.alive, c.params("cuda"), height, WIDTH,
+                                 deg, bg, **TRAINER_KW) for c in frame_cams)]
+    del serve
+    scene = Scene(views)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = local.run(chip_smoke.shard_rank, n_ranks, args=(SHARD_MESH, SHARD_MESH[0],
+                                                      os.path.join(tmp, "mesh"), scene,
+                                                      frame_cams), timeout=600)
+        mesh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (one,) = local.run(chip_smoke.shard_rank, 1, args=((1, 1), SHARD_MESH[0],
+                                                 os.path.join(tmp, "one"), scene, None),
+                           timeout=300)
+        one_s = time.perf_counter() - t0
+        (ckpt_dir,) = [os.path.join(tmp, "mesh", f) for f in os.listdir(os.path.join(tmp,
+                                                                                   "mesh"))]
+        t0 = time.perf_counter()
+        restored, opt, step, _ = restore_checkpoint_sharded(ckpt_dir, Config(), device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+
+    # The sharded frames against the one-device render.
+    errs, bit_equal = [], True
+    for got, ref in zip(ranks[0]["frames"], refs):
+        errs.append(max(float(np.abs(g - r).max()) for g, r in zip(got, ref)))
+        bit_equal &= all(np.array_equal(g, r) for g, r in zip(got, ref))
+    print(f"  sharded render, {SHARD_FRAMES} frames: max |sharded - one-device| by frame "
+          f"{[float(f'{e:.3e}') for e in errs]} (tol {SHARD_TOL:g}); bit-equal {bit_equal}; "
+          f"K1 launches per rank {[r['frame_launches'] for r in ranks]}; frame ms per rank "
+          f"{[[round(x, 1) for x in r['frame_ms']] for r in ranks]}", flush=True)
+    if max(errs) > SHARD_TOL or any(r["frame_launches"] != SHARD_FRAMES for r in ranks):
+        raise AssertionError("the sharded frames differ from the one-device render")
+
+    # The 4-rank MeshTrainer against the 1-rank world (NCCL), 1-vs-N bar.
+    launches = [r["launches"] for r in ranks]
+    grown = [(h["step"], h["cloned"], h["capacity_before"], h["capacity_after"])
+             for h in ranks[0]["history"]]
+    print(f"  MeshTrainer, {SHARD_STEPS} steps: K1/K2/K3 launches per rank {launches}; "
+          f"densify (step, cloned, capacity before, after) {grown}; peak GiB per rank "
+          f"{[round(r['peak_gib'], 2) for r in ranks]}", flush=True)
+    if any(v != SHARD_STEPS for r in launches for v in r.values()):
+        raise AssertionError(f"expected {SHARD_STEPS} launches of K1, K2, K3 on every rank")
+    if ranks[0]["capacity"] != 3 * N_SPLATS or one["capacity"] != 3 * N_SPLATS:
+        raise AssertionError("the densify at step 4 did not grow the capacity to 786,432")
+    for r in ranks:
+        print(f"  rank {r['rank']}: step ms {[round(x, 1) for x in r['step_ms']]}; "
+              f"collective s over the {SHARD_STEPS} steps "
+              f"{ {k: round(v, 3) for k, v in sorted(r['collectives'].items())} }", flush=True)
+    print(f"  1-rank world (NCCL): step ms {[round(x, 1) for x in one['step_ms']]}; collective "
+          f"s { {k: round(v, 4) for k, v in sorted(one['collectives'].items())} }; "
+          f"the 4 ranks share one card, so their times are time-sliced, not scaling figures",
+          flush=True)
+    print(f"  losses, 4 ranks {[round(m['loss'], 6) for m in ranks[0]['metrics']]}; 1 rank "
+          f"{[round(m['loss'], 6) for m in one['metrics']]}", flush=True)
+    for i, (m4, m1) in enumerate(zip(ranks[0]["metrics"], one["metrics"])):
+        for k in ("loss", "psnr", "loss_l1", "loss_ssim", "num_live", "n_intersections"):
+            if not np.isclose(m4[k], m1[k], rtol=2e-4, atol=2e-5):
+                raise AssertionError(f"step {i + 1} {k}: 4 ranks {m4[k]} vs 1 rank {m1[k]}")
+    alive = np.concatenate([r["alive"] for r in ranks])
+    if not np.array_equal(alive, one["alive"]):
+        raise AssertionError("the 4 ranks' alive mask differs from the 1-rank world's")
+    live = one["alive"]
+    report, bar = {}, True
+    for name, lr in LRS.items():
+        a = one["shard"][name][live]
+        b = np.concatenate([r["shard"][name] for r in ranks])[live]
+        close = float(np.isclose(a, b, rtol=3e-4, atol=3e-5).mean())
+        worst = float(np.abs(a - b).max()) / lr
+        report[name] = (round(close, 6), round(worst, 4))
+        bar &= close > 0.99 and worst < 2.5
+    accum = np.concatenate([r["accum"] for r in ranks])
+    accum_ok = bool(np.allclose(accum[live], one["accum"][live], rtol=5e-3, atol=1e-4))
+    print(f"  1-vs-N after {SHARD_STEPS} steps, per field (share within rtol 3e-4 atol 3e-5, "
+          f"max diff / lr): {report}; accumulators within rtol 5e-3 atol 1e-4 {accum_ok}",
+          flush=True)
+    if not (bar and accum_ok):
+        raise AssertionError("the 4 ranks miss the 1-vs-N bar against the 1-rank world")
+
+    # The step-8 sharded checkpoint, restored whole by this one process.
+    same = step == SHARD_STEPS and opt.count == SHARD_STEPS and all(
+        np.array_equal(t.detach().cpu().numpy(),
+                       np.concatenate([r["shard"][name] for r in ranks]))
+        for name, t in restored.params.fields())
+    print(f"  step-{step} sharded checkpoint restored in one process: {restore_s:.3f} s, "
+          f"capacity {restored.capacity}, equal to the 4 ranks' state {same}", flush=True)
+    if not same:
+        raise AssertionError("the restored sharded checkpoint differs from the ranks' state")
+    print(f"  K1 / K2 on rank 0's band: max abs err {ranks[0]['k1_err']:.3e} / "
+          f"{ranks[0]['k2_err']:.3e}; 4-rank world {mesh_s:.1f} s, 1-rank world "
+          f"{one_s:.1f} s; phase {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return {k: sum(r[k] for r in launches) for k in launches[0]}
+
+
 def main() -> int:
     import torch
 
@@ -1699,8 +1963,12 @@ def main() -> int:
     # -- 10. density regularization + MCMC, then the mesh ---------------------------------
     mesh_launches = mesh_phase(torch, rc, tt, Config, gts,
                                mesh_256="--mesh-256" in sys.argv[1:])
+
+    # -- 11. multi-device training on torch.distributed ---------------------------------
+    shard_launches = shard_phase(torch, Config)
     by_phase = {name: {"6": train_launches[name] if name != "segsum" else
-                       mxu_launches["segsum"], "10": mesh_launches[name]}
+                       mxu_launches["segsum"], "10": mesh_launches[name],
+                       "11": shard_launches[name]}
                 for name in mesh_launches}
 
     record = {"kernels": [{

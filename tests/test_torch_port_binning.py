@@ -40,11 +40,11 @@ def _projected():
     }
 
 
-def _bin_both(tile_x, clip, **caps):
+def _bin_both(tile_x, clip, row_stride=1, row_offset=0, **caps):
     a = _projected()
-    tiles_x, tiles_y = -(-W // tile_x), -(-H // 16)
+    tiles_x, tiles_y = -(-W // tile_x), -(-H // 16) // row_stride
     static = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_size=16, chunk=32,
-                  tile_size_x=tile_x, **caps)
+                  tile_size_x=tile_x, row_stride=row_stride, row_offset=row_offset, **caps)
 
     @functools.partial(jax.jit, static_argnames=("clip",))
     def ref_fn(xys, depths, radii, valid, conics, opacities, clip):
@@ -97,7 +97,20 @@ def test_empty_scene():
 
 
 def test_banding_not_ported():
+    """Strided tile-row banding, ported since: each band of row stride 2
+    (offsets 0 and 1; 3 of the image's 6 tile rows) bins exactly as the
+    JAX package's, and the two bands hold every entry of the whole grid."""
+    for tile_x, clip in ((16, True), (64, True), (16, False)):
+        _, whole = _bin_both(tile_x, clip, max_per_tile=512)
+        total = 0
+        for offset in (0, 1):
+            ref, got = _bin_both(tile_x, clip, row_stride=2, row_offset=offset,
+                                 max_per_tile=512)
+            assert got.num_entries > 0
+            _assert_bins_equal(ref, got)
+            total += got.total_intersections
+        assert total == whole.total_intersections
     t = {k: torch.tensor(v) for k, v in _projected().items()}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="row_offset"):
         bin_splats_dense(t["xys"], t["depths"], t["radii"], t["valid"], 4, 2,
-                         row_stride=2)
+                         row_stride=2, row_offset=2)

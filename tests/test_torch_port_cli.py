@@ -75,10 +75,27 @@ def test_synthetic_run_checkpoint_loads_in_jax_and_resumes(tmp_path):
                                           (["--mesh-splat", "2"], "item 16"),
                                           (["--mesh-tile", "2"], "item 16"),
                                           (["--distributed"], "item 16")])
-def test_unported_flags_raise(flags, slice_):
-    with pytest.raises(NotImplementedError, match=slice_):
-        train_cli.main(flags + ["--no-viewer", "--synthetic", "--rasterizer", "dense",
-                                "--device", "cpu"])
+def test_unported_flags_raise(flags, slice_, tmp_path):
+    """--regularize-diffusion still raises and names item 17. The
+    multi-device flags of item 16 are ported: each trains 2 steps on 2
+    local gloo ranks (the mesh (2, 1), (1, 2) and, with --distributed alone,
+    every rank on the tile axis) and writes a sharded checkpoint."""
+    common = ["--no-viewer", "--synthetic", "--device", "cpu"]
+    if slice_ == "item 17":
+        with pytest.raises(NotImplementedError, match=slice_):
+            train_cli.main(flags + common + ["--rasterizer", "dense"])
+        return
+    from tinysplat_torch.parallel import local
+
+    from tests import _torch_ranks
+
+    argv = flags + common + ["--train", "--max-iter", "2", "--save-checkpoints",
+                             "--checkpoint-interval", "2", "--checkpoint-dir", str(tmp_path)]
+    ranks = local.run(_torch_ranks.cli_main, 2, args=(argv,), device="cpu", timeout=300)
+    assert [(r["step"], r["type"]) for r in ranks] == [(2, "MeshTrainer")] * 2
+    (ckpt,) = ranks[0]["files"]
+    assert ckpt.endswith("-2.ckpt") and ranks[1]["files"] == [ckpt]
+    assert sorted(os.listdir(tmp_path / ckpt)) == ["manifest.npz", "p0", "p1"]
 
 
 def test_mcmc_density_run_through_the_cli(tmp_path):

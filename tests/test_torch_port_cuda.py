@@ -131,6 +131,37 @@ def test_k2_matches_plain(name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stride", [2, 4])
+def test_banded_k1_k2_match_plain(stride):
+    """K1 and K2 on the strided bands of the sharded trainer (tile rows
+    {o, o + S, ...} of a 128 px tall image, xys in global pixels): the
+    tiles' pixel origins are global rows, K1 equals its plain version bit
+    for bit, K2 to 1e-5 x column max and byte for byte across two launches,
+    and each band's tiles equal the whole image's tiles of the same rows."""
+    caps = dict(max_per_tile=4096, dup_capacity=1 << 16)
+    for tile_x in (16, 64):
+        rng = np.random.default_rng(40 + stride)
+        parts = [_splats(rng, 700, (-6, -6), (166, 134))]
+        whole, _, whole_out, _ = _inputs(parts, 128, 160, tile_x, 7, **caps)
+        for offset in range(stride):
+            ti, args, out, gout = _inputs(parts, 128 // stride, 160, tile_x, 7,
+                                          row_stride=stride, row_offset=offset, **caps)
+            rows = torch.arange(ti.tiles_y, device="cuda") * stride + offset
+            assert torch.equal(ti.sy.reshape(ti.tiles_y, ti.tiles_x)[:, 0], rows * 16)
+            assert torch.equal(out, rc.composite_fwd_plain(*args, tile_x))
+            tiles = whole_out.reshape(whole.tiles_y, whole.tiles_x, *out.shape[1:])[rows]
+            assert torch.equal(out, tiles.reshape(out.shape))
+            got = rc.composite_bwd(*args, out, gout, tile_x)
+            again = rc.composite_bwd(*args, out, gout, tile_x)
+            ref = rc.composite_bwd_plain(*args, out, gout, tile_x)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+            scale = ref.abs().amax(dim=0).clamp(min=1e-30)
+            assert float(((got - ref).abs() / scale).max()) <= 1e-5
+            assert (ref.abs().amax(dim=1) > 0).sum() > 100
+
+
+@pytest.mark.cuda
 def test_nan_opacity_matches_plain():
     """Splats with a NaN opacity: NaN alpha, never kept (as torch.clamp has
     it). K1 equals its plain version and its output at opacity 0; K2 matches

@@ -78,6 +78,17 @@ def test_slice_e_modules_import_no_jax(module):
     test_slice_d_modules_import_no_jax(module)
 
 
+SLICE_F_MODULES = ("parallel", "parallel.collectives", "parallel.sharding",
+                   "parallel.train_step", "parallel.trainer", "parallel.local")
+
+
+@pytest.mark.parametrize("module", SLICE_F_MODULES)
+def test_slice_f_modules_import_no_jax(module):
+    """The multi-device trainer: torch.distributed, never the JAX
+    package's shard_map."""
+    test_slice_d_modules_import_no_jax(module)
+
+
 def test_cuda_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -130,7 +141,8 @@ def test_every_module_imports_without_nvcc():
 
     names = [m.name for m in pkgutil.walk_packages(tt.__path__, "tinysplat_torch.")]
     for new in ("models.densify", "train_loop", "train_cli", "io.checkpoint",
-                "probes.bitcast", "probes.op_costs") + SLICE_D_MODULES + SLICE_E_MODULES:
+                "probes.bitcast", "probes.op_costs") + SLICE_D_MODULES + SLICE_E_MODULES \
+            + SLICE_F_MODULES:
         assert f"tinysplat_torch.{new}" in names
     for name in names:
         importlib.import_module(name)

@@ -129,8 +129,8 @@ def test_argument_checks():
     args = _torch_args(random_case(n=20, H=16, W=16, seed=1))
     with pytest.raises(NotImplementedError):
         rc.rasterize_cuda(*args, tile_size=8)
-    with pytest.raises(NotImplementedError):
-        rc.rasterize_cuda(*args, row_stride=2)
+    with pytest.raises(ValueError, match="row_offset"):  # a band outside the stride
+        rc.rasterize_cuda(*args, row_stride=2, row_offset=2)
     with pytest.raises(ValueError):
         rc.rasterize_cuda(*args, tile_x=24)
     ti = rc.tile_inputs(*args[:9])

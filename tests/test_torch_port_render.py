@@ -126,8 +126,8 @@ def test_xys_probe_and_backend_names():
     for name in ("tiled", "pallas"):
         with pytest.raises(ValueError, match="dense"):
             tt.render(ts.params, ts.alive, cam, H, W, 3, bg, rasterizer=name)
-    with pytest.raises(NotImplementedError):
-        tt.render(ts.params, ts.alive, cam, H, W, 3, bg, row_stride=2)
+    with pytest.raises(NotImplementedError):  # the dense oracle has no bands
+        tt.render(ts.params, ts.alive, cam, H, W, 3, bg, rasterizer="dense", row_stride=2)
     with pytest.raises(NotImplementedError):
         tt.render(ts.params, ts.alive, cam, H, W, 3, bg, tile_size=8)
 

@@ -227,19 +227,23 @@ def test_compute_losses_regularizers_match_jax():
 
 @pytest.mark.parametrize("option", [dict(regularize_diffusion=True), dict(mesh_tile=2)])
 def test_unported_options_raise(option):
-    """The step itself needs neither option; the trainer (diffusion views,
-    item 17) and the CLI (multi-device, item 16) refuse them. The density
-    regularizer and MCMC are ported: tests/test_torch_port_mcmc.py."""
+    """The step itself needs neither option; the trainer refuses the
+    diffusion views (item 17). Multi-device training is ported
+    (tests/test_torch_port_parallel.py): the CLI refuses a mesh only when
+    its ranks are not there. The density regularizer and MCMC are ported:
+    tests/test_torch_port_mcmc.py."""
     from tinysplat_torch import train_cli
     from tinysplat_torch.train_loop import Trainer
 
     cfg = Config(**option)
     tt.make_train_step(cfg, H, W)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        if cfg.regularize_diffusion:
+    if cfg.regularize_diffusion:
+        with pytest.raises(NotImplementedError, match="later slice"):
             Trainer(cfg, None, tt.from_jax_params(_leaves(), "cpu"))
-        else:
+    else:
+        with pytest.raises(ValueError, match="needs 2 ranks, there are 1"):
             train_cli.check_flags(cfg)
+        train_cli.check_flags(cfg, world_size=2)
 
 
 def test_unported_loss_arguments_raise():

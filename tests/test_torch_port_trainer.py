@@ -47,7 +47,8 @@ from tinysplat_torch.data.synthetic import orbit_cameras
 from tinysplat_torch.io.checkpoint import load_checkpoint, load_checkpoint_extras
 from tinysplat_torch.models.gaussians import PARAM_FIELDS
 from tinysplat_torch.scene import Scene
-from tinysplat_torch.train_loop import MeshTrainer, Trainer
+from tinysplat_torch.parallel import MeshTrainer
+from tinysplat_torch.train_loop import Trainer
 
 from tests.test_train_loop import _toy_scene as jax_toy_scene
 
@@ -439,7 +440,9 @@ def test_profile_window_eval_and_prefetch(tmp_path):
 
 def test_unported_trainer_options_raise():
     """The diffusion views still raise and name ROADMAP item 17; the density
-    regularizer and MCMC are ported (tests/test_torch_port_mcmc.py)."""
+    regularizer and MCMC are ported (tests/test_torch_port_mcmc.py), and so
+    is the mesh trainer: without a process group it builds a one-rank mesh
+    and trains (its N-rank runs: tests/test_torch_port_parallel.py)."""
     with pytest.raises(NotImplementedError, match="item 17"):
         port_trainer(_cfg(regularize_diffusion=True))
     for kw in (dict(regularize_density=True), dict(densify_strategy="mcmc")):
@@ -449,5 +452,8 @@ def test_unported_trainer_options_raise():
 
     asyncio.run(tr.run_async(1))  # ported (slice D): tests/test_torch_port_viewer.py
     assert tr.step == 1
-    with pytest.raises(NotImplementedError, match="item 16"):
-        MeshTrainer()
+    mesh_tr = MeshTrainer(_cfg(), port_scene(jax_toy_scene(n_cams=CAMS, size=SIZE)),
+                          tt.from_jax_params(leaves_of(jax_start()), "cpu"))
+    assert (mesh_tr.n_data, mesh_tr.n_tile, mesh_tr.state.capacity) == (1, 1, 64)
+    mesh_tr.run(1)
+    assert mesh_tr.step == 1 and bool(torch.isfinite(mesh_tr.last_metrics["loss"]))

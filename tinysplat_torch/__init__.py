@@ -22,8 +22,10 @@ regularization (``depthest``), PLY / .splat export (``io.export``,
 running trainer (``viewer``, ``Trainer.run_async``); SuGaR density
 regularization (``regularizers``), 3DGS-MCMC densification
 (``models.densify_mcmc``) and mesh extraction to OBJ (``mesh``,
-``poisson``, ``export_cli --filetype OBJ``), and the semantic sidecar
-(``semantic``).
+``poisson``, ``export_cli --filetype OBJ``), the semantic sidecar
+(``semantic``), and multi-device training on ``torch.distributed``
+(``parallel``: FSDP splat sharding over a ('data', 'tile') mesh of ranks,
+interleaved pixel bands, ``MeshTrainer``, sharded checkpoints).
 """
 
 from .cameras import Camera, CameraParams

@@ -1,9 +1,10 @@
 """Typed training configuration: a copy of ``tinysplat_tpu.config.Config``.
 
 Same field names and defaults as the JAX package's dataclass, so a config
-written for one package reads the same in the other. Fields that only the
-JAX package's TPU path reads (``tiles_per_block``, the mesh and multi-host
-fields) are kept for that parity; the port's render path reads
+written for one package reads the same in the other. ``tiles_per_block``,
+which only the JAX package's TPU path reads, is kept for that parity; the
+mesh and multi-process fields drive ``parallel.MeshTrainer`` and
+``train_cli``'s process group; the port's render path reads
 ``rasterizer``, ``tile_size``, ``tile_x``, the binning budgets,
 ``antialiased`` and ``viewdirs_mode``, its train step
 (``train.make_train_step``) the learning rates, loss weights, regularizer
@@ -189,14 +190,13 @@ class Config:
     nan_guard_interval: int = 200
     mesh_tile: int = 1  # mesh axis size: image-tile (pixel) sharding
     mesh_splat: int = 1  # mesh axis size: splat sharding
-    # Multi-host (multi-controller) launch: every host runs the same CLI.
-    # --distributed alone auto-detects the topology (TPU pod metadata);
-    # explicit coordinator flags cover CPU/gloo or bare-metal launches.
-    # Must be processed BEFORE the JAX backend initializes.
+    # Multi-process launch: every rank runs the same CLI. --distributed
+    # alone reads the torchrun environment; the coordinator flags name the
+    # process group's tcp:// address, its size and this rank.
     distributed: bool = False
     coordinator_address: Optional[str] = None  # host:port of process 0
-    num_processes: int = 0  # 0 = auto-detect
-    process_id: int = -1  # -1 = auto-detect
+    num_processes: int = 0  # world size with --coordinator-address
+    process_id: int = -1  # this rank with --coordinator-address
     seed: int = 0
     synthetic: bool = False  # use a synthetic scene instead of COLMAP data
     log_interval: int = 0  # 0: per-epoch logging like the reference

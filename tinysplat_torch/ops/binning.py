@@ -19,6 +19,12 @@ Semantics (``_sorted_intersections``):
    entry per tile of the row, clipped to the ellipse's x-extent over that
    row's pixel band (at most ``dup_capacity`` entries).
 4. A stable sort by tile id leaves each tile's entries front to back.
+
+Strided tile-row banding (``row_stride`` S, ``row_offset`` o): one call bins
+only the global tile rows {o, o + S, o + 2S, ...} onto a local grid of
+``tiles_y`` rows (local row g covers global row o + g S), with ``xys`` in
+global pixel coordinates. The sharded trainer round-robins the tile rows of
+an image over its ranks this way; S = 1, o = 0 is the whole image.
 """
 from __future__ import annotations
 
@@ -103,7 +109,7 @@ def _span_extent(e, tile_row, ts_f, ts_x, bx0, width):
 
 def _sorted_intersections(xys, depths, radii, valid, tiles_x, tiles_y, tile_size,
                           dup_capacity, span_capacity=0, conics=None, opacities=None,
-                          tile_size_x=0):
+                          tile_size_x=0, row_stride=1, row_offset=0):
     """(sorted_rank, tile_starts, full_counts, total, order, span_overflow):
     the kept entries' depth ranks in (tile, depth) order, each tile's range,
     the entry total before the dup_capacity clamp, the depth order and the
@@ -118,8 +124,9 @@ def _sorted_intersections(xys, depths, radii, valid, tiles_x, tiles_y, tile_size
     i64 = torch.int64
 
     with torch.no_grad():
-        bx0, bx1, by0, by1 = tile_ranges(xys, radii, tiles_x, tiles_y, tile_size,
-                                         tile_size_x=tile_size_x)
+        # Rects clamp against the GLOBAL row range, then map to local rows.
+        bx0, bx1, by0, by1 = tile_ranges(xys, radii, tiles_x, tiles_y * row_stride,
+                                         tile_size, tile_size_x=tile_size_x)
         clip = conics is not None and opacities is not None
         if clip:
             e = _ellipse_constants(xys, conics, opacities)
@@ -130,6 +137,11 @@ def _sorted_intersections(xys, depths, radii, valid, tiles_x, tiles_y, tile_size
             alive = valid & (e["t_s"] > 0.0)
         else:
             alive = valid
+        if row_stride != 1:
+            # Global rows [by0, by1) -> local rows [g0, g1): the ceil and the
+            # floor of (row - o) / S, as floor divisions.
+            by0 = torch.clamp(-((row_offset - by0) // row_stride), 0, tiles_y)
+            by1 = torch.clamp((by1 - 1 - row_offset) // row_stride + 1, 0, tiles_y)
         widths = torch.clamp(bx1 - bx0, min=0)
         rows = torch.where(alive & (widths > 0), torch.clamp(by1 - by0, min=0), 0)
 
@@ -150,7 +162,11 @@ def _sorted_intersections(xys, depths, radii, valid, tiles_x, tiles_y, tile_size
         sp_bx0 = bx0_o[span_rank]
         if clip:
             es = {k: v[order][span_rank] for k, v in e.items() if k != "t_s"}
-            tx0, span_len_f = _span_extent(es, tile_row, ts_f, ts_x, sp_bx0,
+            # The ellipse lives in global pixels: local rows map back.
+            row_g = tile_row
+            if row_stride != 1:
+                row_g = tile_row * float(row_stride) + float(row_offset)
+            tx0, span_len_f = _span_extent(es, row_g, ts_f, ts_x, sp_bx0,
                                            width_o[span_rank])
         else:
             tx0, span_len_f = sp_bx0, width_o[span_rank]
@@ -207,11 +223,13 @@ def bin_splats_dense(
     Defaults and rounding as in the JAX package: ``dup_capacity`` 8*N
     rounded up to ``chunk``; ``max_per_tile`` min(4096, max(dup_capacity /
     num_tiles, 2*chunk)) rounded up to ``chunk``; ``span_capacity``
-    max(dup_capacity // 2, 2*N). Strided tile-row banding (``row_stride``
-    != 1) belongs to the sharded trainer and is not ported.
+    max(dup_capacity // 2, 2*N). ``row_stride`` / ``row_offset``: the
+    strided band of the module docstring (``tiles_y`` is the band's rows).
     """
-    if row_stride != 1 or row_offset != 0:
-        raise NotImplementedError("strided tile-row banding (row_stride != 1) is not ported")
+    if row_stride < 1 or not 0 <= int(row_offset) < row_stride:
+        raise ValueError(f"row_offset must lie in [0, row_stride), got stride {row_stride}, "
+                         f"offset {row_offset}")
+    row_offset = int(row_offset)
     n = xys.shape[0]
     num_tiles = tiles_x * tiles_y
     if dup_capacity <= 0:
@@ -225,7 +243,7 @@ def bin_splats_dense(
         _sorted_intersections(
             xys, depths, radii, valid, tiles_x, tiles_y, tile_size, dup_capacity,
             span_capacity=span_capacity, conics=conics, opacities=opacities,
-            tile_size_x=tile_size_x)
+            tile_size_x=tile_size_x, row_stride=row_stride, row_offset=row_offset)
     counts = torch.clamp(full_counts, max=max_per_tile)
     entry_rank = torch.full((dup_capacity + chunk,), -1, dtype=torch.int32,
                             device=xys.device)

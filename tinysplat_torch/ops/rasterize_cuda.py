@@ -7,12 +7,15 @@ has ``rasterize_pallas``'s signature, outputs, diagnostics and gradients:
    entries out contiguously (entry ids are depth RANKS); the per-splat
    attribute table is permuted by the depth order, so entry ranks index it
    directly, and a zero SENTINEL row follows it (opacity 0 => no
-   contribution). Per-tile pixel origins ``sx``/``sy``.
+   contribution). Per-tile pixel origins ``sx``/``sy``: with a strided band
+   (``row_stride`` S, ``row_offset`` o) local tile row g starts at global
+   pixel row (o + g S) * 16, so the kernels composite global coordinates.
 2. ``composite_fwd``: K1 (``csrc/composite_fwd.cu``) on CUDA tensors, its
    plain PyTorch version ``composite_fwd_plain`` on CPU tensors. Output:
    (num_tiles, 8, 16 * tile_x) f32 rows [c0..c3, T_final, n_contrib,
    last_contrib, 0], the JAX kernel's OUT_ROWS layout.
-3. ``untile``: background blend by T_final, tiles -> (H, W) image.
+3. ``untile``: background blend by T_final, tiles -> (H, W) image (a
+   band's rows stay in band order).
 
 The backward (``loss.backward()`` reaches it through ``composite_tiles``, a
 ``torch.autograd.Function`` around K1):
@@ -79,8 +82,10 @@ class TileInputs(NamedTuple):
 def tile_inputs(xys, depths, radii, conics, colors, opacities, valid,
                 img_height: int, img_width: int, chunk: int = 128,
                 dup_capacity: int = 0, max_per_tile: int = 0,
-                span_capacity: int = 0, tile_x: int = TILE) -> TileInputs:
-    """Bin the splats and build K1's attribute table and tile origins."""
+                span_capacity: int = 0, tile_x: int = TILE, row_stride: int = 1,
+                row_offset: int = 0) -> TileInputs:
+    """Bin the splats and build K1's attribute table and tile origins
+    (``img_height`` rows; a strided band of them with ``row_stride``)."""
     n, c = xys.shape[0], colors.shape[-1]
     if c > 4:
         raise ValueError(f"the compositing kernel takes up to 4 channels, got {c}")
@@ -90,7 +95,7 @@ def tile_inputs(xys, depths, radii, conics, colors, opacities, valid,
         xys, depths, radii, valid, tiles_x, tiles_y, TILE, chunk=chunk,
         dup_capacity=dup_capacity, max_per_tile=max_per_tile,
         span_capacity=span_capacity, conics=conics, opacities=opacities,
-        tile_size_x=tile_x,
+        tile_size_x=tile_x, row_stride=row_stride, row_offset=row_offset,
     )
     ecol = torch.nn.functional.pad(colors, (0, 4 - c))
     per_splat = torch.cat([xys, conics, opacities.reshape(-1, 1), ecol], dim=1)
@@ -98,7 +103,7 @@ def tile_inputs(xys, depths, radii, conics, colors, opacities, valid,
                        per_splat.new_zeros((1, TABLE_COLS), dtype=torch.float32)])
     tid = torch.arange(tiles_x * tiles_y, dtype=torch.int32, device=xys.device)
     sx = (tid % tiles_x) * tile_x
-    sy = (tid // tiles_x) * TILE
+    sy = ((tid // tiles_x) * row_stride + int(row_offset)) * TILE
     return TileInputs(table.contiguous(), bins.entry_rank, bins.tile_starts,
                       bins.counts, sx, sy, tile_x, tiles_x, tiles_y, bins)
 
@@ -671,24 +676,21 @@ def rasterize_cuda(
     in the JAX layout. ``grad_reduce`` selects the per-entry -> per-splat
     gradient reduction of the backward (``reduce_entry_grads``).
     ``tiles_per_block`` is a TPU grid-step setting that this path does not
-    read.
+    read. ``row_stride`` / ``row_offset``: render only the global tile rows
+    {o, o + S, ...} (``xys`` in global pixels) into an (img_height, W) band.
     """
     if grad_reduce not in GRAD_REDUCE:
         raise ValueError(f"grad_reduce must be one of {GRAD_REDUCE}, got {grad_reduce!r}")
     if tile_size != TILE:
         raise NotImplementedError(
             f"the tile grid is fixed at {TILE}px rows; got tile_size={tile_size}")
-    if row_stride != 1:
-        raise NotImplementedError(
-            "strided tile-row banding (row_stride != 1) belongs to the sharded "
-            "trainer and is not ported")
     tile_x = tile_x or tile_size
     if tile_x <= 0 or tile_x % 16:
         raise ValueError(f"tile_x must be a positive multiple of 16, got {tile_x}")
     ti = tile_inputs(xys, depths, radii, conics, colors, opacities, valid,
                      img_height, img_width, chunk=chunk, dup_capacity=dup_capacity,
                      max_per_tile=max_per_tile, span_capacity=span_capacity,
-                     tile_x=tile_x)
+                     tile_x=tile_x, row_stride=row_stride, row_offset=row_offset)
     out = composite_tiles(ti.table, ti.entry_rank, ti.tile_starts, ti.counts,
                           ti.sx, ti.sy, tile_x, grad_reduce)
     img, alpha = untile(out, background, ti.tiles_x, ti.tiles_y, tile_x,

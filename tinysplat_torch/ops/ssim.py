@@ -64,8 +64,15 @@ def ssim_map(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0,
              win_size: int = 11, win_sigma: float = 1.5, k1: float = 0.01,
              k2: float = 0.03) -> torch.Tensor:
     """Per-position SSIM map, valid positions only: (H-w+1, W-w+1, C)."""
-    x = img1.permute(2, 0, 1)[None]  # (1, C, H, W)
-    y = img2.permute(2, 0, 1)[None]
+    return ssim_maps(img1[None], img2[None], data_range, win_size, win_sigma, k1, k2)[0]
+
+
+def ssim_maps(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0,
+              win_size: int = 11, win_sigma: float = 1.5, k1: float = 0.01,
+              k2: float = 0.03) -> torch.Tensor:
+    """``ssim_map`` of each image of an (N, H, W, C) batch: (N, H', W', C)."""
+    x = img1.permute(0, 3, 1, 2)  # (N, C, H, W)
+    y = img2.permute(0, 3, 1, 2)
     window = torch.as_tensor(_gaussian_window(win_size, win_sigma), dtype=img1.dtype,
                              device=img1.device)
     c1 = (k1 * data_range) ** 2
@@ -85,7 +92,7 @@ def ssim_map(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0,
 
     cs_map = (2 * sigma_xy + c2) / (sigma_xx + sigma_yy + c2)
     smap = ((2 * mu_xy + c1) / (mu_xx + mu_yy + c1)) * cs_map
-    return smap[0].permute(1, 2, 0)  # (H', W', C)
+    return smap.permute(0, 2, 3, 1)  # (N, H', W', C)
 
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0,

@@ -157,11 +157,13 @@ def render(
     (H, W, 3) clamped to <= 1 and extras with 'depth' (H, W), 'alpha'
     (H, W), 'radii' (C,), 'xys' (C, 2), 'depths' (C,), 'camera' dims and,
     for the 'cuda' backend, 'binning' diagnostics.
+
+    Band rendering (``row_stride`` S > 1): only the interleaved global 16-px
+    tile rows {row_offset, row_offset + S, ...} of a ``proj_height``-tall
+    image, into an (img_height, W) band: the per-rank work of the sharded
+    trainer's 'tile' axis. Projection and intrinsics use the full height
+    (``proj_height``, default img_height). The dense oracle has no bands.
     """
-    if row_stride != 1:
-        raise NotImplementedError(
-            "strided tile-row banding (row_stride != 1) belongs to the sharded "
-            "trainer and is not ported")
     rasterizer = resolve_rasterizer(rasterizer)
     s = splat_inputs(params, alive, camera, img_height, img_width, active_sh_degree,
                      background, xys_probe=xys_probe, viewdirs_mode=viewdirs_mode,
@@ -171,6 +173,9 @@ def render(
     if rasterizer == "dense":
         from .ops.rasterize_dense import rasterize_dense
 
+        if row_stride != 1:
+            raise NotImplementedError("the dense oracle has no banding path (row_stride "
+                                      "must be 1)")
         img4, alpha = rasterize_dense(
             s.xys, s.proj.depths, s.proj.conics, s.colors4, s.opacities, s.valid,
             img_height, img_width, s.bg4,
@@ -185,6 +190,7 @@ def render(
             span_capacity=span_capacity, grad_reduce=grad_reduce,
             chunk=chunk, tiles_per_block=tiles_per_block, tile_x=tile_x,
             return_diagnostics=True, tile_size=tile_size,
+            row_stride=row_stride, row_offset=row_offset,
         )
 
     rgb = torch.minimum(img4[..., :3], img4.new_ones(()))  # ties as in splat_inputs

@@ -20,8 +20,20 @@ depth map per training camera under ``<dataset-dir>/<depths-path>`` first.
 ``pose_opt`` / ``app_opt`` tables come back from its extras), hold out
 every k-th camera for evaluation with ``--eval-holdout k``.
 
-Not ported yet (raise NotImplementedError): the distributed / mesh flags
-(ROADMAP Queue 1 item 16).
+Multi-device training: one process per rank, each with the same flags.
+``--mesh-splat D --mesh-tile T`` shape the ('data', 'tile') mesh of D * T
+ranks (``parallel.MeshTrainer``). The ranks join through
+``--coordinator-address host:port --num-processes N --process-id r``
+(``init_process_group`` with ``tcp://host:port``), or, with ``--distributed``
+alone, the ``torchrun`` environment:
+
+    torchrun --nproc-per-node 4 -m tinysplat_torch.train_cli --distributed \
+        --mesh-splat 2 --mesh-tile 2 --train --synthetic --no-viewer
+
+A sharded checkpoint is a directory (``<timestamp>-<step>.ckpt``), which
+``--load-checkpoint`` reads as well as a ``.npz``. ``--viewer`` is off when
+there are several ranks: a frame is a collective render over every rank,
+which a viewer on one rank cannot drive.
 """
 from __future__ import annotations
 
@@ -33,7 +45,6 @@ import os
 from typing import Optional, Sequence
 
 from .config import Config
-from .train import _not_ported
 
 _TYPES = {"int": int, "float": float, "str": str, "Optional[str]": str,
           "Optional[int]": int}
@@ -51,12 +62,34 @@ def arg_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def check_flags(cfg: Config) -> None:
-    """Raise for the flags whose modules a later slice brings."""
-    if (cfg.distributed or cfg.coordinator_address or cfg.mesh_tile > 1
-            or cfg.mesh_splat > 1):
-        raise _not_ported("multi-device training (--distributed, --mesh-tile, --mesh-splat)",
-                          "parallel/ on torch.distributed", "item 16")
+def check_flags(cfg: Config, world_size: int = 1) -> None:
+    """Raise when the mesh of ``--mesh-splat`` / ``--mesh-tile`` does not
+    cover the ``world_size`` ranks exactly: ``--mesh-splat`` data groups,
+    and ``--mesh-tile`` ranks on the tile axis, or every rank left over
+    when it is 0 or 1 (the default)."""
+    data = max(cfg.mesh_splat, 1)
+    tile = cfg.mesh_tile if cfg.mesh_tile > 1 else max(world_size // data, 1)
+    if data * tile != world_size:
+        raise ValueError(
+            f"--mesh-splat {cfg.mesh_splat} --mesh-tile {cfg.mesh_tile} needs "
+            f"{data * tile} ranks, there are {world_size}: start one process per "
+            "rank (--distributed under torchrun, or --coordinator-address, "
+            "--num-processes and --process-id)")
+
+
+def init_world(cfg: Config) -> int:
+    """Join the process group the flags name (or the one already there);
+    returns the world size."""
+    import torch.distributed as dist
+
+    from .parallel import init_distributed
+
+    if cfg.coordinator_address:
+        init_distributed(f"tcp://{cfg.coordinator_address}", rank=max(cfg.process_id, 0),
+                         world_size=max(cfg.num_processes, 1), device=cfg.device)
+    elif cfg.distributed:
+        init_distributed(device=cfg.device)  # the torchrun environment
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def build_scene(cfg: Config, device):
@@ -130,7 +163,8 @@ def main(argv: Optional[Sequence[str]] = None):
     logging.basicConfig(level=getattr(logging, os.environ.get("LOG_LEVEL", "INFO")),
                         format="%(asctime)s - %(levelname)s - %(message)s")
     cfg = Config(**vars(arg_parser().parse_args(argv)))
-    check_flags(cfg)
+    world = init_world(cfg)
+    check_flags(cfg, world)
     cfg = dataclasses.replace(
         cfg,
         colmap_path=os.path.join(cfg.dataset_dir, cfg.colmap_path),
@@ -138,12 +172,18 @@ def main(argv: Optional[Sequence[str]] = None):
         depths_path=os.path.join(cfg.dataset_dir, cfg.depths_path),
     )
 
-    from .io.checkpoint import load_checkpoint, load_checkpoint_extras
+    from .io.checkpoint import (
+        load_checkpoint,
+        load_checkpoint_extras,
+        load_checkpoint_sharded_extras,
+        restore_checkpoint_sharded,
+    )
     from .models.gaussians import init_from_pcd
+    from .parallel import MeshTrainer, rank_device
     from .train_loop import Trainer
     from .utils.device import resolve_device
 
-    device = resolve_device(cfg.device)
+    device = rank_device(cfg.device) if world > 1 else resolve_device(cfg.device)
     scene, pcd, cfg = build_scene(cfg, device)
     eval_cameras = []
     if cfg.eval_holdout > 1:  # every k-th camera held out for evaluation
@@ -152,7 +192,11 @@ def main(argv: Optional[Sequence[str]] = None):
         scene.cameras = [c for i, c in enumerate(all_cams) if i % cfg.eval_holdout != 0]
 
     opt_state, start_step, rng_state = None, 0, None
-    if cfg.load_checkpoint:
+    sharded_ckpt = bool(cfg.load_checkpoint) and os.path.isdir(cfg.load_checkpoint)
+    if sharded_ckpt:  # the whole state on every rank; the trainer shards it
+        state, opt_state, start_step, rng_state = restore_checkpoint_sharded(
+            cfg.load_checkpoint, cfg, device=device)
+    elif cfg.load_checkpoint:
         state, opt_state, start_step, rng_state = load_checkpoint(cfg.load_checkpoint, cfg,
                                                                   device)
     else:
@@ -162,11 +206,22 @@ def main(argv: Optional[Sequence[str]] = None):
         from .depthest import DepthEstimator
 
         DepthEstimator(scene, pcd=pcd, depths_path=cfg.depths_path, model_name=cfg.depth_model)
-    trainer = Trainer(cfg, scene, state, opt_state, start_step, rng_state)
+    if world > 1 or cfg.mesh_splat > 1 or cfg.mesh_tile > 1:
+        trainer = MeshTrainer(cfg, scene, state, opt_state, start_step, rng_state)
+    else:
+        trainer = Trainer(cfg, scene, state, opt_state, start_step, rng_state)
     if cfg.load_checkpoint and (cfg.pose_opt or cfg.app_opt):
-        trainer.restore_pose_state(load_checkpoint_extras(cfg.load_checkpoint))
+        extras = (load_checkpoint_sharded_extras if sharded_ckpt else
+                  load_checkpoint_extras)(cfg.load_checkpoint)
+        trainer.restore_pose_state(extras)
     trainer.eval_cameras = eval_cameras
     scene.render_fn = lambda camera, dims=None: trainer.render_camera(camera, dims)
+    if cfg.viewer and world > 1:
+        logging.getLogger(__name__).warning(
+            "--viewer is off with %d ranks: a frame is a render over every rank, which a "
+            "viewer on one rank cannot drive (use --eval-interval, or render a checkpoint)",
+            world)
+        cfg = dataclasses.replace(cfg, viewer=False)
     if cfg.viewer:
         from .viewer import Viewer
 

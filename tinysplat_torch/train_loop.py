@@ -32,12 +32,18 @@ boundaries. Densify, prune and the opacity reset edit the parameter tensors
 and Adam moments in place; growth, compaction and a rollback make new
 tensors and rebuild the optimizer (``GaussianAdam.carried``).
 
+The sharded trainer (``parallel.MeshTrainer``) runs this loop on every
+rank and overrides its hooks: ``_whole_state`` (the host passes that need
+every splat: densify with growth, compaction, the density-probe refresh),
+``_invalidate_step_cache``, ``_c2f_height_quantum``, ``_global_capacity``
+and ``_budget_bands``. The metrics file is written by rank 0 only.
+
 Not ported yet (raise NotImplementedError): the diffusion views of
-``regularize_diffusion`` (ROADMAP Queue 1 item 17) and ``MeshTrainer``
-(item 16).
+``regularize_diffusion`` (ROADMAP Queue 1 item 17).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -48,6 +54,7 @@ from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .cameras import Camera, apply_pose_delta
 from .config import Config
@@ -190,7 +197,10 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         if rng_state is not None:
             self.generator.set_state(rng_state)
-        self.metrics = Metrics(len(scene.cameras), csv_path=cfg.metrics_file or None)
+        # The metrics are replicated over the ranks of a mesh: rank 0 writes them.
+        rank0 = not dist.is_initialized() or dist.get_rank() == 0
+        self.metrics = Metrics(len(scene.cameras),
+                               csv_path=(cfg.metrics_file or None) if rank0 else None)
         self._image_cache: Dict[tuple, torch.Tensor] = {}
         self._decode_lock = defaultdict(threading.Lock)  # per camera (PIL decode)
         self._prefetched = False
@@ -212,6 +222,9 @@ class Trainer:
         self.eval_cameras: List[Camera] = []
         self._last_diag = None  # (intersections, dup_dropped, tile_dropped)
         self._no_shrink_until = 0  # hysteresis after a budget grow
+        # Independent binning calls the diagnostics sum over (MeshTrainer:
+        # n_tile bands, each binned against its own dup_capacity).
+        self._budget_bands = 1
         # pose_opt / app_opt: per-camera tables + Adam moments, bound to the
         # initial camera set by name.
         self.pose_deltas = None
@@ -284,6 +297,11 @@ class Trainer:
 
     # -- coarse-to-fine ---------------------------------------------------------------
 
+    def _c2f_height_quantum(self) -> int:
+        """Height snap of reduced resolutions (MeshTrainer: n_tile bands of
+        whole 16-px tile rows)."""
+        return self.cfg.tile_size
+
     def _c2f_scale(self) -> float:
         cfg = self.cfg
         if not cfg.coarse_to_fine:
@@ -301,9 +319,9 @@ class Trainer:
         s = self._c2f_scale()
         if s >= 1.0:
             return camera.height, camera.width
-        q = self.cfg.tile_size
-        return (max(q, int(camera.height * s) // q * q),
-                max(q, int(camera.width * s) // q * q))
+        qh, qw = self._c2f_height_quantum(), self.cfg.tile_size
+        return (max(qh, int(camera.height * s) // qh * qh),
+                max(qw, int(camera.width * s) // qw * qw))
 
     @staticmethod
     def _scale_cam_params(cam_params, camera, h: int, w: int):
@@ -316,6 +334,23 @@ class Trainer:
                                    cx_off=cam_params.cx_off * sx,
                                    cy_off=cam_params.cy_off * sy)
 
+    # -- hooks of the sharded trainer --------------------------------------------------
+
+    @contextlib.contextmanager
+    def _whole_state(self):
+        """Hold every splat in ``self.state`` / ``self.opt_state`` for the
+        enclosed host pass (MeshTrainer gathers its shards, then shards the
+        result again)."""
+        yield
+
+    def _invalidate_step_cache(self) -> None:
+        """Hook after a config change (a budget retune): the step is built
+        from ``self.cfg`` each time here; MeshTrainer drops its built step."""
+
+    def _global_capacity(self) -> int:
+        """Slots over every rank (MeshTrainer: the shards together)."""
+        return self.state.capacity
+
     # -- densification ----------------------------------------------------------------
 
     def _maybe_densify(self) -> None:
@@ -324,6 +359,11 @@ class Trainer:
             return
         if step % self.interval_densify != 0:
             return
+        with self._whole_state():
+            self._densify()
+
+    def _densify(self) -> None:
+        cfg, step = self.cfg, self.step
         cap_before = self.state.capacity
         t0 = time.perf_counter()
         if cfg.densify_strategy == "mcmc":
@@ -369,15 +409,16 @@ class Trainer:
             return
         if cfg.densify_strategy == "mcmc":
             return  # the capacity is MCMC's growth ceiling: never shrunk
-        old_cap = self.state.capacity
-        self.state, self.opt_state, did = compact_state(self.state, self.opt_state,
-                                                        margin=cfg.compact_margin)
-        if did:
-            log.info("compacted capacity %d -> %d (%d live)", old_cap, self.state.capacity,
-                     int(self.state.num_live()))
-            # Compaction permutes the rows: the probe's KNN indices would
-            # point at other splats, so it is rebuilt at the next step.
-            self.density_probe = None
+        with self._whole_state():
+            old_cap = self.state.capacity
+            self.state, self.opt_state, did = compact_state(self.state, self.opt_state,
+                                                            margin=cfg.compact_margin)
+            if did:
+                log.info("compacted capacity %d -> %d (%d live)", old_cap,
+                         self.state.capacity, int(self.state.num_live()))
+                # Compaction permutes the rows: the probe's KNN indices would
+                # point at other splats, so it is rebuilt at the next step.
+                self.density_probe = None
 
     def _maybe_refresh_density_probe(self) -> None:
         """At the window start, prune sigmoid(opacity) < 0.5; rebuild the
@@ -389,10 +430,13 @@ class Trainer:
                 and cfg.regularize_density_start <= step < cfg.regularize_density_end):
             return
         start = step == cfg.regularize_density_start
-        if start:
-            faint = torch.sigmoid(self.state.params.opacities[:, 0]) < 0.5
-            self.state, self.opt_state = prune_by_mask(self.state, self.opt_state, faint)
-        if start or step % max(cfg.interval_densify, 1) == 1 or self.density_probe is None:
+        refresh = start or step % max(cfg.interval_densify, 1) == 1 or self.density_probe is None
+        if not refresh:
+            return
+        with self._whole_state():
+            if start:
+                faint = torch.sigmoid(self.state.params.opacities[:, 0]) < 0.5
+                self.state, self.opt_state = prune_by_mask(self.state, self.opt_state, faint)
             timings: Dict[str, float] = {}
             self.density_probe = make_density_probe(
                 self.state.params, self.state.alive, num_samples=cfg.density_samples,
@@ -583,7 +627,7 @@ class Trainer:
 
     def run(self, max_iter: Optional[int] = None) -> None:
         end = max_iter if max_iter is not None else self.cfg.max_iter
-        if self.cfg.prefetch_images:
+        if self.cfg.prefetch_images and not dist.is_initialized():
             self.prefetch_images()
         try:
             while self.step < end:
@@ -603,7 +647,7 @@ class Trainer:
 
         loop = asyncio.get_running_loop()
         end = max_iter if max_iter is not None else self.cfg.max_iter
-        if self.cfg.prefetch_images:
+        if self.cfg.prefetch_images and not dist.is_initialized():
             self.prefetch_images()
         try:
             while self.step < end:
@@ -660,14 +704,18 @@ class Trainer:
             return
         inter, dup_dropped, tile_dropped = (int(x) for x in self._last_diag)
         self._last_diag = None
-        n = self.state.capacity
+        # A single band can hold every intersection, so growth uses the
+        # global count; shrinking uses the per-band mean (a band 4x above
+        # the mean still fits after the 2x headroom).
+        inter_band = -(-inter // max(self._budget_bands, 1))
+        n = self._global_capacity()
         current = self.cfg.dup_capacity or 8 * n
         changes = {}
         if dup_dropped > 0:
             changes["dup_capacity"] = max(2 * (inter + dup_dropped), current * 2)
-        elif (inter > 0 and inter < current // 4 and current > 2 * n
+        elif (inter > 0 and inter_band < current // 4 and current > 2 * n
               and self.step >= self._no_shrink_until):
-            changes["dup_capacity"] = max(2 * inter, 2 * n)
+            changes["dup_capacity"] = max(2 * inter_band, 2 * n)
         if tile_dropped > 0:
             cam = self.scene.cameras[0]
             num_tiles = max(((cam.width + 15) // 16) * ((cam.height + 15) // 16), 1)
@@ -687,6 +735,7 @@ class Trainer:
         log.info("retuning budgets %s (intersections %d, dup_dropped %d, tile_dropped %d)",
                  changes, inter, dup_dropped, tile_dropped)
         self.cfg = dataclasses.replace(self.cfg, **changes)
+        self._invalidate_step_cache()
 
     # -- evaluation and rendering -------------------------------------------------------
 
@@ -729,10 +778,3 @@ class Trainer:
                           dup_capacity=cfg.dup_capacity, max_per_tile=cfg.max_per_tile,
                           span_capacity=cfg.span_capacity, grad_reduce=cfg.grad_reduce,
                           tile_x=cfg.tile_x, antialiased=cfg.antialiased)
-
-
-class MeshTrainer:
-    """The sharded multi-device trainer of the JAX package (not ported)."""
-
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("MeshTrainer", "parallel/ on torch.distributed", "item 16")

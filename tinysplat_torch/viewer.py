@@ -16,7 +16,8 @@ Behavioral parity points:
 
 A frame may render while a ``Trainer`` steps in another thread: the trainer
 holds its lock across a step and across ``render_camera``, so a frame sees
-a whole step. Multi-process serving comes with ROADMAP Queue 1 item 16.
+a whole step. With several ranks (``torch.distributed``), only rank 0
+serves: ``run`` returns at once on the others.
 
 The browser client lives in viewer/ (same protocol).
 """
@@ -143,7 +144,11 @@ class Viewer:
             await asyncio.sleep(0.02)
 
     async def run(self) -> None:
+        import torch.distributed as dist
         import websockets
+
+        if dist.is_initialized() and dist.get_rank() != 0:  # rank 0 serves
+            return
 
         # ping_interval=None: a first frame builds the kernels, which can
         # block a render for seconds; default keepalives would drop clients.
