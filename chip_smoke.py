@@ -108,8 +108,28 @@ exits non-zero):
    reduce-scatter, SSIM halo, psum, and the host staging inside them) and
    the phase's seconds.
 
+12. Diffusion-guided novel views: a diffusers directory with the published
+   Stable Diffusion v1.5 unet/ and vae/ configs and seeded random weights
+   (~0.94B parameters, float16 safetensors, deleted at the end) loads through
+   ``TinysplatDiffusionPipeline.from_pretrained`` onto the card, and a
+   ``Trainer`` with ``regularize_diffusion`` trains 12 steps from phase 6's
+   start (262,144 splats, 4 views at 1066x1600, "mxu"): refreshes at steps 2,
+   4 and 8 render 2 novel views each at 512x512 (K1), refine them (VAE
+   encode, 5 DDIM steps at CFG batch 2 of 8 at strength 0.6, VAE decode) and
+   train on them; step 10 removes them. Then one refresh with the tiny
+   pipeline (no directory: latent 16, 128x128, the feature-volume path).
+   Checks: K1 = 12 steps + one render per synthetic view, K2 = K3 = 12;
+   cameras per step; frames finite in [0, 1]; finite losses; no cached frame
+   of a removed camera; K1 bit-equal to its plain version on a 512x512
+   refresh render; the full-width UNet (batch 1) and VAE decode on the card
+   against copies on the host CPU (TF32 off); the tiny pipeline on the card
+   against the CPU with the same weights and draws. Prints the directory's
+   write and load seconds, each refresh's seconds and CUDA-event ms per
+   stage (VAE encode, UNet per DDIM step, VAE decode) beside each stage's
+   FLOP and bound, refresh steps beside plain steps, and peak memory.
+
 The line before the last is the kernels' JSON record (K1-K3's launches
-sum the counted windows of phases 6, 10 and 11, ``launches_by_phase``;
+sum the counted windows of phases 6, 10, 11 and 12, ``launches_by_phase``;
 phase 11's sum the four ranks' training windows); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -197,6 +217,30 @@ SHARD_TOL = 2e-5  # sharded vs one-device frames (the JAX suite's tolerance)
 # The JAX suite's 1-vs-N bar (tests/test_parallel.py:104-125).
 LRS = {"means": 0.00016, "scales": 0.005, "quats": 0.001, "opacities": 0.05,
        "colors_dc": 0.0025}
+
+# Phase 12: the diffusion-guided trainer. The published Stable Diffusion v1.5
+# unet/config.json and vae/config.json values (written as literals; the
+# weights are drawn from a seed), 12 steps from phase 6's start with
+# refreshes at 2 (the window start), 4 and 8 (every 4) and the window's end
+# at 10. The SD modules on the card are held to copies on the host CPU at
+# SD_CARD_TOL x max: ~70 float32 convolution and matmul layers, summed in
+# other orders by cuDNN's and the CPU's algorithms, read ~4e-6 on an H100,
+# so the bar leaves a 25x margin; the same forwards with TF32 on are printed
+# beside it as the control the bar must catch. The tiny pipeline is held at
+# TINY_CARD_TOL (the CPU parity tests' pipeline bar).
+SD15_UNET = dict(sample_size=64, in_channels=4, out_channels=4,
+                 block_out_channels=[320, 640, 1280, 1280], layers_per_block=2,
+                 attention_head_dim=8, cross_attention_dim=768, norm_num_groups=32,
+                 norm_eps=1e-5, flip_sin_to_cos=True, freq_shift=0, act_fn="silu",
+                 down_block_types=["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"],
+                 up_block_types=["UpBlock2D"] + ["CrossAttnUpBlock2D"] * 3)
+SD15_VAE = dict(sample_size=512, in_channels=3, out_channels=3,
+                block_out_channels=[128, 256, 512, 512], layers_per_block=2, latent_channels=4,
+                norm_num_groups=32, act_fn="silu", scaling_factor=0.18215,
+                down_block_types=["DownEncoderBlock2D"] * 4,
+                up_block_types=["UpDecoderBlock2D"] * 4)
+DIFF_STEPS, DIFF_WINDOW, DIFF_INTERVAL, DIFF_REFRESHES = 12, (2, 10), 4, (2, 4, 8)
+SD_CARD_TOL, TINY_CARD_TOL = 1e-4, 1e-4
 
 
 def gpu_name_and_limit() -> str:
@@ -1644,6 +1688,347 @@ def shard_phase(torch, Config):
     return {k: sum(r[k] for r in launches) for k in launches[0]}
 
 
+def sd15_state_dict(torch, model, seed):
+    """Random weights for every tensor of ``model`` (built on the meta
+    device), drawn on the card from a seeded generator and stored as
+    float16: kernels normal with std 1 / sqrt(fan_in), norm scales 1,
+    biases 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sd = {}
+    for k, v in model.state_dict().items():
+        if v.dim() >= 2:
+            w = torch.randn(tuple(v.shape), generator=g, device="cuda") / float(
+                np.sqrt(v[0].numel()))
+        elif k.endswith("weight") and "norm" in k:
+            w = torch.ones(tuple(v.shape), device="cuda")
+        else:
+            w = torch.zeros(tuple(v.shape), device="cuda")
+        sd[k] = w.half().cpu()
+    return sd
+
+
+def write_sd15_dir(torch, root, seed=0):
+    """A diffusers directory with the published SD v1.5 unet/ and vae/
+    configs and seeded random float16 weights; returns its parameter count."""
+    from tinysplat_torch.diffusion.port import write_safetensors
+    from tinysplat_torch.diffusion.sd_unet import UNet2DConditionModel
+    from tinysplat_torch.diffusion.sd_vae import SDAutoencoderKL
+
+    count = 0
+    for i, (sub, cls, cfg) in enumerate((("unet", UNet2DConditionModel, SD15_UNET),
+                                         ("vae", SDAutoencoderKL, SD15_VAE))):
+        os.makedirs(os.path.join(root, sub))
+        with open(os.path.join(root, sub, "config.json"), "w") as f:
+            json.dump(cfg, f)
+        with torch.device("meta"):
+            model = cls(cfg)
+        sd = sd15_state_dict(torch, model, seed + i)
+        count += sum(v.numel() for v in sd.values())
+        write_safetensors(os.path.join(root, sub, "diffusion_pytorch_model.safetensors"), sd,
+                          "F16")
+    return count
+
+
+def host_copy(torch, module):
+    """An SD module (``sd_unet`` / ``sd_vae``) with the same weights on the
+    host CPU, built from its config (not a copy of the object: the stage
+    timer wraps the card's module's methods)."""
+    with torch.device("meta"):
+        copy = type(module)(module.config)
+    copy.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()}, assign=True)
+    return copy.eval()
+
+
+class StageTimer:
+    """CUDA-event times of the pipeline's stages: wraps the bound methods
+    ``vae.encode``, ``unet.forward`` and ``vae.decode`` of a pipeline."""
+
+    def __init__(self, torch, pipe):
+        self.torch, self.events = torch, {}
+        for name, obj, attr in (("vae encode", pipe.vae, "encode"),
+                                ("unet", pipe.unet, "forward"),
+                                ("vae decode", pipe.vae, "decode")):
+            self.events[name] = []
+            setattr(obj, attr, self._timed(getattr(obj, attr), name))
+
+    def _timed(self, fn, name):
+        def run(*args, **kw):
+            start, end = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events[name].append((start, end))
+            return out
+        return run
+
+    def take(self):
+        """{stage: [ms, ...]} since the last take."""
+        self.torch.cuda.synchronize()
+        out = {k: [s.elapsed_time(e) for s, e in v] for k, v in self.events.items()}
+        for v in self.events.values():
+            v.clear()
+        return out
+
+
+def stage_bounds(torch, pipe, size):
+    """Per stage at the refresh's shapes: (FLOP of its matmuls and
+    convolutions, counted by torch's FlopCounterMode from the shapes;
+    bytes of its weights, inputs and outputs once; the bound in ms and what
+    bounds it). The UNet runs at the CFG batch of 2."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    lc, s8 = pipe.vae.latent_channels, size // 8
+    ctx = pipe.unet.cross_attention_dim
+    img = torch.zeros((1, 3, size, size), device="cuda")
+    lat = torch.zeros((1, lc, s8, s8), device="cuda")
+    lat2 = torch.zeros((2, pipe.unet.in_channels, s8, s8), device="cuda")
+    prompt = torch.zeros((2, 2, ctx), device="cuda")
+    stages = {
+        "vae encode": (pipe.vae, lambda: pipe.vae.encode(img, eps=lat), (img, lat)),
+        "unet": (pipe.unet, lambda: pipe.unet(lat2, torch.ones(1, device="cuda"), prompt),
+                 (lat2, prompt)),
+        "vae decode": (pipe.vae, lambda: pipe.vae.decode(lat), (lat,)),
+    }
+    out = {}
+    for name, (module, fn, inputs) in stages.items():
+        with torch.no_grad(), FlopCounterMode(display=False) as fc:
+            result = fn()
+        flop = fc.get_total_flops()
+        moved = nbytes(*module.parameters()) + nbytes(*inputs) + nbytes(result)
+        out[name] = (flop, moved) + kernel_bound(moved, 0, flop)
+    return out
+
+
+def diffusion_phase(torch, rc, tt, Config, gts):
+    """Phase 12: the diffusion-guided trainer at full width; see the module
+    docstring. Returns the launches of K1, K2 and K3 in its counted window."""
+    from tinysplat_torch.data.synthetic import orbit_cameras
+    from tinysplat_torch.diffusion.pipeline import TinysplatDiffusionPipeline
+    from tinysplat_torch.io.checkpoint import load_model
+    from tinysplat_torch.regularizers.diffusion_guidance import FALLBACK_SEED, DiffusionGuidance
+    from tinysplat_torch.scene import Scene
+    from tinysplat_torch.train_loop import Trainer
+    from tinysplat_torch.utils.device import full_f32
+
+    phase_t0 = time.perf_counter()
+    card = gpu_name_and_limit()
+    torch.cuda.reset_peak_memory_stats()
+    cams = orbit_cameras(len(gts), width=WIDTH, height=HEIGHT)
+    for cam, gt in zip(cams, gts):
+        cam._image = gt.cpu().numpy()
+    scene = Scene(cams)
+    print(f"phase 12: diffusion-guided training ({card}): the SD v1.5 topology from a "
+          f"diffusers directory, {DIFF_STEPS} steps, {N_SPLATS} splats, {HEIGHT}x{WIDTH}, "
+          f"{len(cams)} views, refreshes at {DIFF_REFRESHES}, window end "
+          f"{DIFF_WINDOW[1]}; then one refresh with the tiny pipeline", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = os.path.join(tmp, "sd15")
+        t0 = time.perf_counter()
+        n_params = write_sd15_dir(torch, model_dir)
+        write_s = time.perf_counter() - t0
+        size_gb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(model_dir)
+                      for f in fs) / 1e9
+        ckpt = os.path.join(tmp, "bench_scene.npz")
+        write_bench_checkpoint(ckpt)
+        start = load_model(ckpt, device="cuda")
+        noise = np.random.default_rng(7).normal(0.0, 0.1, size=tuple(start.params.colors_dc.shape))
+        with torch.no_grad():  # phase 6's start: dimmed opacities, perturbed colours
+            live = start.alive[:, None]
+            start.params.opacities[:] = torch.where(live, -1.0, start.params.opacities)
+            start.params.colors_dc += torch.where(
+                live, torch.as_tensor(noise, dtype=torch.float32, device="cuda"), 0.0)
+        cfg = Config(background="black", warmup_grad=0, grad_reduce="mxu",
+                     regularize_diffusion=True, diffusion_model_dir=model_dir,
+                     regularize_diffusion_start=DIFF_WINDOW[0],
+                     regularize_diffusion_end=DIFF_WINDOW[1], interval_diffusion=DIFF_INTERVAL,
+                     lambda_diffusion=0.5, diffusion_inference_steps=8, diffusion_strength=0.6,
+                     max_iter=DIFF_STEPS, **TRAINER_KW)
+        tr = Trainer(cfg, scene, start)
+        # The trainer builds the guidance at the window's first step; its
+        # load (from_pretrained) and each refresh are timed by wrapping the
+        # class's methods for the 12 steps, and the load is taken out of the
+        # first refresh's seconds.
+        load_log, refresh_log, timers = [], [], []
+        ensure, refresh = DiffusionGuidance._ensure_pipeline, DiffusionGuidance.refresh
+
+        def timed_ensure(self):
+            if self.pipeline is not None:
+                return ensure(self)
+            t0 = time.perf_counter()
+            ensure(self)
+            torch.cuda.synchronize()
+            load_log.append(time.perf_counter() - t0)
+            timers.append(StageTimer(torch, self.pipeline))
+
+        def timed_refresh(self, trainer, real):
+            loaded = len(load_log)
+            t0 = time.perf_counter()
+            out = refresh(self, trainer, real)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0 - sum(load_log[loaded:])
+            refresh_log.append((trainer.step, secs, timers[-1].take()))
+            return out
+
+        kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+        for k in kernels:
+            k.launches = 0
+        step_s, losses, n_cams = [], [], []
+        DiffusionGuidance._ensure_pipeline, DiffusionGuidance.refresh = (timed_ensure,
+                                                                         timed_refresh)
+        try:
+            for s in range(1, DIFF_STEPS + 1):
+                t0 = time.perf_counter()
+                tr.run(s)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(tr.last_metrics["loss"]))
+                n_cams.append(len(tr.scene.cameras))
+        finally:
+            DiffusionGuidance._ensure_pipeline, DiffusionGuidance.refresh = ensure, refresh
+        guidance = tr._diffusion_guidance
+        pipe = guidance.pipeline
+        print(f"  SD v1.5 directory: {n_params} parameters, {size_gb:.3f} GB as float16 "
+              f"safetensors, written in {write_s:.2f} s; from_pretrained onto the card "
+              f"(float32) at step {DIFF_WINDOW[0]}, by the trainer: {load_log} s; feature "
+              f"conditioning "
+              f"{'on' if pipe.feature_encoder is not None else 'off (4-channel UNet)'}; "
+              f"frames {guidance.size}x{guidance.size}", flush=True)
+        if len(load_log) != 1 or pipe.unet.conv_in.weight.device.type != "cuda":
+            raise AssertionError(f"the trainer loaded the pipeline {len(load_log)} times")
+        synth = list(guidance.cameras)
+
+        # (b) one refresh with the tiny pipeline (diffusion_model_dir empty),
+        # on the same trainer and scene: the feature-volume path.
+        tiny_cfg = dataclasses.replace(cfg, diffusion_model_dir="")
+        tiny = DiffusionGuidance(tiny_cfg, rng_seed=1, device=tr.device)
+        captured = []
+        refine = tiny.refine
+
+        def capture(*args):
+            captured.append(args)
+            return refine(*args)
+
+        tiny.refine = capture
+        t0 = time.perf_counter()
+        tiny_cams = tiny.refresh(tr, tr.scene.cameras)
+        torch.cuda.synchronize()
+        tiny_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels}
+        n_refresh_views = sum(1 for _ in refresh_log) * 2
+        want = {"composite_fwd": DIFF_STEPS + n_refresh_views + len(tiny_cams),
+                "composite_bwd": DIFF_STEPS, "segsum": DIFF_STEPS}
+        print(f"  launches in the {DIFF_STEPS} steps and the tiny refresh: {launches} "
+              f"(K1: {DIFF_STEPS} steps + {n_refresh_views} SD refresh renders + "
+              f"{len(tiny_cams)} tiny refresh renders); cameras per step {n_cams}; losses "
+              f"{[round(x, 5) for x in losses]}", flush=True)
+        check_launches(launches, want, "phase 12")
+        if [r[0] for r in refresh_log] != list(DIFF_REFRESHES):
+            raise AssertionError(f"refreshes at steps {[r[0] for r in refresh_log]}")
+        in_window = [DIFF_WINDOW[0] <= s < DIFF_WINDOW[1] for s in range(1, DIFF_STEPS + 1)]
+        if n_cams != [len(cams) + 2 if w else len(cams) for w in in_window]:
+            raise AssertionError(f"synthetic cameras per step {n_cams}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"non-finite losses {losses}")
+        for c in synth + tiny_cams:
+            f = c.get_original_image()
+            if not (np.isfinite(f).all() and f.min() >= 0.0 and f.max() <= 1.0):
+                raise AssertionError(f"frame of {c.name} not finite in [0, 1]")
+        stale = {k[0] for k in tr._image_cache} - {c.name for c in tr.scene.cameras}
+        if stale:
+            raise AssertionError(f"cached frames of removed cameras {stale}")
+
+        bounds = stage_bounds(torch, pipe, guidance.size)
+        for step, secs, stages in refresh_log:
+            parts = "; ".join(
+                f"{k} {len(v)} x median {statistics.median(v):.3f} ms" for k, v in
+                stages.items())
+            print(f"  refresh at step {step}: {secs:.3f} s for 2 views ({card}); {parts}",
+                  flush=True)
+        for name, (flop, moved, bound, by) in bounds.items():
+            print(f"  {name}: {flop / 1e12:.4f} TFLOP (matmuls and convolutions, from the "
+                  f"shapes), {moved / 1e9:.3f} GB of weights and inputs / outputs; bound "
+                  f"{bound:.3f} ms by {by} at the float32 peak", flush=True)
+        refresh_steps = list(DIFF_REFRESHES)
+        plain = [step_s[s - 1] for s in range(2, DIFF_STEPS + 1) if s not in refresh_steps]
+        print(f"  host s per step {[round(x, 4) for x in step_s]}: refresh steps "
+              f"{[round(step_s[s - 1], 4) for s in refresh_steps]}, median of the others "
+              f"{statistics.median(plain):.4f} s; the tiny refresh (latent 16, 128x128, 2 "
+              f"views) {tiny_s:.3f} s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+        # K1 against its plain version on one 512 x 512 refresh render.
+        cam = synth[0]
+        ti, _, _ = backward_inputs(torch, rc, tr.state, cam.params("cuda"), torch.as_tensor(
+            cam.get_original_image(), device="cuda"), int(tr.state.active_sh_degree), tr.cfg,
+            {k: getattr(tr.cfg, k) for k in TRAINER_KW})
+        compare_kernel(torch, rc, (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx,
+                                   ti.sy, ti.tile_x), f"refresh render of {cam.name}, "
+                                                      f"{guidance.size}x{guidance.size}")
+
+        # (a) the full-width UNet (batch 1, one timestep) and one VAE decode,
+        # the card's modules against copies on the host CPU.
+        rng = np.random.default_rng(12)
+        s8 = guidance.size // 8
+        lat = torch.as_tensor(rng.normal(size=(1, 4, s8, s8)), dtype=torch.float32)
+        ctx = torch.as_tensor(rng.normal(size=(1, 2, pipe.unet.cross_attention_dim)),
+                              dtype=torch.float32)
+        t_step = torch.tensor([601.0])
+        unet, vae = pipe.unet, pipe.vae.model
+        with torch.no_grad(), full_f32():
+            got_u = unet(lat.cuda(), t_step.cuda(), ctx.cuda()).cpu()
+            got_d = vae.decode(lat.cuda()).cpu()
+            t0 = time.perf_counter()
+            ref_u = host_copy(torch, unet)(lat, t_step, ctx)
+            ref_d = host_copy(torch, vae).decode(lat)
+            host_s = time.perf_counter() - t0
+        # The control: the same two forwards on the card with TF32 on.
+        saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            with torch.no_grad():
+                tf32_u = unet(lat.cuda(), t_step.cuda(), ctx.cuda()).cpu()
+                tf32_d = vae.decode(lat.cuda()).cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        errs, tf32_errs = ({name: float((g - r).abs().max()) / float(r.abs().max())
+                            for name, g, r in (("unet", u, ref_u), ("vae decode", d, ref_d))}
+                           for u, d in ((got_u, got_d), (tf32_u, tf32_d)))
+        print(f"  full width on the card vs the host CPU (same weights, TF32 off): max |diff| / "
+              f"max |CPU| {errs} (tol {SD_CARD_TOL:g}); the host's two forwards "
+              f"{host_s:.1f} s; control, the card with TF32 on: {tf32_errs} (over the tol: "
+              f"{ {k: v > SD_CARD_TOL for k, v in tf32_errs.items()} })", flush=True)
+        if not all(torch.isfinite(x).all() for x in (got_u, got_d)) or max(
+                errs.values()) > SD_CARD_TOL:
+            raise AssertionError(f"the SD modules on the card disagree with the CPU: {errs}")
+
+    # (b) the whole tiny pipeline on the card against the CPU, the same
+    # weights (drawn on the host from the fallback's seed) and injected draws.
+    init, cam_tg, cam_in, input_imgs, _ = captured[0]
+    cpu_pipe = TinysplatDiffusionPipeline.tiny(
+        generator=torch.Generator().manual_seed(FALLBACK_SEED), device="cpu")
+    lc, s8 = cpu_pipe.vae.latent_channels, tiny.size // 8
+    eps = torch.as_tensor(rng.normal(size=(1, lc, s8, s8)), dtype=torch.float32)
+    noise = torch.as_tensor(rng.normal(size=(1, lc, s8, s8)), dtype=torch.float32)
+    kw = dict(num_inference_steps=cfg.diffusion_inference_steps,
+              strength=cfg.diffusion_strength)
+    got = tiny.pipeline(init, cam_tg, cam_in, input_imgs, eps=eps.cuda(), noise=noise.cuda(),
+                        **kw).cpu()
+
+    def host(x):
+        return dataclasses.replace(x, **{f.name: getattr(x, f.name).cpu()
+                                         for f in dataclasses.fields(x)})
+
+    ref = cpu_pipe(init.cpu(), host(cam_tg), host(cam_in), input_imgs.cpu(), eps=eps,
+                   noise=noise, **kw)
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    print(f"  tiny pipeline ({tiny.size}x{tiny.size}, feature conditioning on) on the card "
+          f"vs the CPU: max |diff| / max |CPU| {err:.3e} (tol {TINY_CARD_TOL:g})", flush=True)
+    if not torch.isfinite(got).all() or err > TINY_CARD_TOL:
+        raise AssertionError("the tiny pipeline on the card disagrees with the CPU")
+    print(f"  phase 12: {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1966,9 +2351,12 @@ def main() -> int:
 
     # -- 11. multi-device training on torch.distributed ---------------------------------
     shard_launches = shard_phase(torch, Config)
+
+    # -- 12. diffusion-guided novel views -------------------------------------------------
+    diffusion_launches = diffusion_phase(torch, rc, tt, Config, gts)
     by_phase = {name: {"6": train_launches[name] if name != "segsum" else
                        mxu_launches["segsum"], "10": mesh_launches[name],
-                       "11": shard_launches[name]}
+                       "11": shard_launches[name], "12": diffusion_launches[name]}
                 for name in mesh_launches}
 
     record = {"kernels": [{

@@ -1,8 +1,8 @@
 """The port's train CLI (``python -m tinysplat_torch.train_cli``) vs
 ``scripts/train.py``: flag parity with its ``arg_parser`` (loaded by path),
 a synthetic run on the CPU whose checkpoint the JAX package loads, resume
-from it, an MCMC + density-regularized run, and the flags whose modules a
-later slice brings. Datasets,
+from it, an MCMC + density-regularized run, and the flags once refused
+(the diffusion views, the multi-device flags). Datasets,
 depth and the viewer are tested in test_torch_port_{data,depthest,viewer}.py.
 """
 import importlib.util
@@ -76,14 +76,33 @@ def test_synthetic_run_checkpoint_loads_in_jax_and_resumes(tmp_path):
                                           (["--mesh-tile", "2"], "item 16"),
                                           (["--distributed"], "item 16")])
 def test_unported_flags_raise(flags, slice_, tmp_path):
-    """--regularize-diffusion still raises and names item 17. The
-    multi-device flags of item 16 are ported: each trains 2 steps on 2
-    local gloo ranks (the mesh (2, 1), (1, 2) and, with --distributed alone,
-    every rank on the tile axis) and writes a sharded checkpoint."""
+    """Every flag these cases once refused is ported now. --regularize-
+    diffusion (item 17) with --diffusion-model-dir trains on the CPU: a
+    native tiny pipeline (latent 4, 32 x 32 views) written here refreshes 2
+    synthetic views at steps 1 and 2, and step 3 closes the window. The
+    multi-device flags of item 16 each train 2 steps on 2 local gloo ranks
+    (the mesh (2, 1), (1, 2) and, with --distributed alone, every rank on
+    the tile axis) and write a sharded checkpoint."""
     common = ["--no-viewer", "--synthetic", "--device", "cpu"]
     if slice_ == "item 17":
-        with pytest.raises(NotImplementedError, match=slice_):
-            train_cli.main(flags + common + ["--rasterizer", "dense"])
+        import torch
+
+        from tinysplat_torch.diffusion.pipeline import TinysplatDiffusionPipeline
+
+        model_dir = str(tmp_path / "prior")
+        TinysplatDiffusionPipeline.tiny(sample_size=4, device="cpu").save_native(model_dir)
+        tr = train_cli.main(flags + common + [
+            "--rasterizer", "dense", "--train", "--max-iter", "3", "--diffusion-model-dir",
+            model_dir, "--regularize-diffusion-start", "1", "--regularize-diffusion-end", "3",
+            "--interval-diffusion", "1", "--lambda-diffusion", "0.2",
+            "--diffusion-inference-steps", "2"])
+        guidance = tr._diffusion_guidance
+        assert tr.cfg.regularize_diffusion and tr.cfg.diffusion_model_dir == model_dir
+        assert guidance.size == 32 and [c.name for c in guidance.cameras] == [
+            "diffusion_0", "diffusion_1"]
+        assert all(c.get_original_image().shape == (32, 32, 3) for c in guidance.cameras)
+        assert tr.step == 3 and len(tr.scene.cameras) == 10  # the window closed at step 3
+        assert bool(torch.isfinite(tr.last_metrics["loss"]))
         return
     from tinysplat_torch.parallel import local
 

@@ -379,3 +379,64 @@ def test_poisson_solve_stays_on_the_card():
     cpu = poisson.solve_indicator(p.cpu(), (p / p.norm(dim=1, keepdim=True)).cpu(),
                                   resolution=32)[0]
     assert float((chi.cpu() - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
+
+
+def _tiny_pipelines():
+    """The tiny pipeline (latent 4, default widths otherwise) on the CPU and
+    on the card, with the same weights, and one view's inputs."""
+    from tinysplat_torch.data.synthetic import orbit_cameras
+    from tinysplat_torch.diffusion.pipeline import TinysplatDiffusionPipeline, stack_cameras
+
+    cpu = TinysplatDiffusionPipeline.tiny(sample_size=4,
+                                          generator=torch.Generator().manual_seed(1),
+                                          device="cpu")
+    card = TinysplatDiffusionPipeline.tiny(sample_size=4,
+                                           generator=torch.Generator().manual_seed(1))
+    cams = orbit_cameras(3, width=40, height=30)
+    rng = np.random.default_rng(2)
+    init = torch.as_tensor(rng.uniform(-1, 1, (1, 3, 32, 32)), dtype=torch.float32)
+    imgs = torch.as_tensor(rng.uniform(0, 1, (1, 2, 3, 8, 8)), dtype=torch.float32)
+    eps = torch.as_tensor(rng.normal(size=(1, 4, 4, 4)), dtype=torch.float32)
+    noise = torch.as_tensor(rng.normal(size=(1, 4, 4, 4)), dtype=torch.float32)
+
+    def inputs(dev):
+        tg, cin = stack_cameras(cams[:1], dev), stack_cameras([cams[1:]], dev)
+        return (init.to(dev), tg, cin, imgs.to(dev)), dict(eps=eps.to(dev), noise=noise.to(dev))
+
+    return cpu, card, inputs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strength", [0.0, 0.6, 1.0])
+def test_tiny_diffusion_pipeline_on_the_card_matches_the_cpu(strength):
+    """The same weights and draws: within 1e-4 x max (TF32 off on the card;
+    the convolution algorithms differ)."""
+    _need_card()
+    cpu, card, inputs = _tiny_pipelines()
+    args, draws = inputs("cpu")
+    want = cpu(*args, num_inference_steps=8, strength=strength, **draws)
+    args, draws = inputs("cuda")
+    got = card(*args, num_inference_steps=8, strength=strength, **draws)
+    assert got.is_cuda and got.shape == want.shape == (1, 3, 32, 32)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_diffusion_forward_runs_without_tf32_and_restores_the_flags():
+    _need_card()
+    _, card, inputs = _tiny_pipelines()
+    seen = []
+    card.unet.register_forward_pre_hook(lambda *_: seen.append(
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)))
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        args, draws = inputs("cuda")
+        card(*args, num_inference_steps=4, strength=1.0, **draws)
+        assert seen and set(seen) == {(False, False)}
+        assert [f.allow_tf32 for f in flags] == [True, True]
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v

@@ -89,6 +89,36 @@ def test_slice_f_modules_import_no_jax(module):
     test_slice_d_modules_import_no_jax(module)
 
 
+SLICE_G_MODULES = ("diffusion", "diffusion.clip", "diffusion.convert",
+                   "diffusion.flax_msgpack", "diffusion.model_diffusion", "diffusion.pipeline",
+                   "diffusion.port", "diffusion.scheduler", "diffusion.sd_adapters",
+                   "diffusion.sd_clip", "diffusion.sd_unet", "diffusion.sd_vae",
+                   "diffusion.unet", "diffusion.vae", "regularizers.diffusion_guidance",
+                   "utils.rays", "utils.resize")
+
+
+@pytest.mark.parametrize("module", SLICE_G_MODULES)
+def test_slice_g_modules_import_no_jax(module):
+    """The diffusion views: torch.nn modules, a first-party safetensors and
+    msgpack reader, never flax or the JAX package."""
+    test_slice_d_modules_import_no_jax(module)
+
+
+def test_slice_g_modules_load_no_jax_at_run_time():
+    """Importing the port and every slice-G module in a fresh interpreter
+    leaves jax, flax and the JAX package out of sys.modules."""
+    import subprocess
+    import sys
+
+    code = ("import importlib, sys; [importlib.import_module('tinysplat_torch.' + m) for m in "
+            f"{SLICE_G_MODULES!r}]; import tinysplat_torch.train_loop; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
 def test_cuda_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -142,7 +172,7 @@ def test_every_module_imports_without_nvcc():
     names = [m.name for m in pkgutil.walk_packages(tt.__path__, "tinysplat_torch.")]
     for new in ("models.densify", "train_loop", "train_cli", "io.checkpoint",
                 "probes.bitcast", "probes.op_costs") + SLICE_D_MODULES + SLICE_E_MODULES \
-            + SLICE_F_MODULES:
+            + SLICE_F_MODULES + SLICE_G_MODULES:
         assert f"tinysplat_torch.{new}" in names
     for name in names:
         importlib.import_module(name)
@@ -169,3 +199,23 @@ def test_trainer_cli_and_probes_default_to_the_card(tmp_path):
     save_checkpoint(path, tt.init_from_pcd(pcd.xyz, pcd.colors, device="cpu"))
     with pytest.raises(RuntimeError, match="CUDA"):
         load_checkpoint(path, tt.Config())
+
+
+def test_diffusion_entry_points_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from tinysplat_torch.diffusion.pipeline import TinysplatDiffusionPipeline
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TinysplatDiffusionPipeline.tiny(sample_size=4)
+    TinysplatDiffusionPipeline.tiny(sample_size=4, device="cpu").save_native(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TinysplatDiffusionPipeline.from_pretrained(str(tmp_path))
+    from tinysplat_torch.diffusion import port
+    from tinysplat_torch.diffusion.clip import ClipEncoders
+
+    for load in (port.load_unet, port.load_vae, port.load_text_encoder):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            load(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClipEncoders()

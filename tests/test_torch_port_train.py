@@ -227,19 +227,25 @@ def test_compute_losses_regularizers_match_jax():
 
 @pytest.mark.parametrize("option", [dict(regularize_diffusion=True), dict(mesh_tile=2)])
 def test_unported_options_raise(option):
-    """The step itself needs neither option; the trainer refuses the
-    diffusion views (item 17). Multi-device training is ported
-    (tests/test_torch_port_parallel.py): the CLI refuses a mesh only when
-    its ranks are not there. The density regularizer and MCMC are ported:
-    tests/test_torch_port_mcmc.py."""
+    """The step itself needs neither option. The diffusion views are ported
+    (tests/test_torch_port_diffusion_guidance.py): the single-device
+    trainer takes them and the mesh trainer refuses them. Multi-device
+    training is ported (tests/test_torch_port_parallel.py): the CLI refuses
+    a mesh only when its ranks are not there. The density regularizer and
+    MCMC are ported: tests/test_torch_port_mcmc.py."""
     from tinysplat_torch import train_cli
+    from tinysplat_torch.parallel import MeshTrainer
+    from tinysplat_torch.scene import Scene
     from tinysplat_torch.train_loop import Trainer
 
     cfg = Config(**option)
     tt.make_train_step(cfg, H, W)
     if cfg.regularize_diffusion:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            Trainer(cfg, None, tt.from_jax_params(_leaves(), "cpu"))
+        scene = Scene(orbit_cameras(3, width=W, height=H))
+        tr = Trainer(cfg, scene, tt.from_jax_params(_leaves(), "cpu"))
+        assert tr._diffusion_guidance is None  # built at the window's first step
+        with pytest.raises(ValueError, match="single-device trainer"):
+            MeshTrainer(cfg, scene, tt.from_jax_params(_leaves(), "cpu"))
     else:
         with pytest.raises(ValueError, match="needs 2 ranks, there are 1"):
             train_cli.check_flags(cfg)

@@ -439,12 +439,17 @@ def test_profile_window_eval_and_prefetch(tmp_path):
 
 
 def test_unported_trainer_options_raise():
-    """The diffusion views still raise and name ROADMAP item 17; the density
-    regularizer and MCMC are ported (tests/test_torch_port_mcmc.py), and so
-    is the mesh trainer: without a process group it builds a one-rank mesh
-    and trains (its N-rank runs: tests/test_torch_port_parallel.py)."""
-    with pytest.raises(NotImplementedError, match="item 17"):
-        port_trainer(_cfg(regularize_diffusion=True))
+    """Every option is ported: the diffusion views build on the
+    single-device trainer (tests/test_torch_port_diffusion_guidance.py) and
+    the mesh trainer refuses them; the density regularizer and MCMC are
+    ported (tests/test_torch_port_mcmc.py), and so is the mesh trainer:
+    without a process group it builds a one-rank mesh and trains (its N-rank
+    runs: tests/test_torch_port_parallel.py)."""
+    assert port_trainer(_cfg(regularize_diffusion=True))._diffusion_real_cams is None
+    with pytest.raises(ValueError, match="single-device trainer"):
+        MeshTrainer(_cfg(regularize_diffusion=True),
+                    port_scene(jax_toy_scene(n_cams=CAMS, size=SIZE)),
+                    tt.from_jax_params(leaves_of(jax_start()), "cpu"))
     for kw in (dict(regularize_density=True), dict(densify_strategy="mcmc")):
         assert port_trainer(_cfg(**kw)).density_probe is None
     tr = port_trainer(_cfg())

@@ -25,7 +25,11 @@ regularization (``regularizers``), 3DGS-MCMC densification
 ``poisson``, ``export_cli --filetype OBJ``), the semantic sidecar
 (``semantic``), and multi-device training on ``torch.distributed``
 (``parallel``: FSDP splat sharding over a ('data', 'tile') mesh of ranks,
-interleaved pixel bands, ``MeshTrainer``, sharded checkpoints).
+interleaved pixel bands, ``MeshTrainer``, sharded checkpoints), and
+diffusion-guided novel views (``diffusion``: the SD-1.x-topology UNet and
+VAE from a diffusers directory, the tiny prior, DDIM and the feature-volume
+conditioning; ``regularizers.diffusion_guidance`` and the trainer's
+``regularize_diffusion``).
 """
 
 from .cameras import Camera, CameraParams

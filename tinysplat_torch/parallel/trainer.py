@@ -125,6 +125,11 @@ class MeshTrainer(Trainer):
 
     def __init__(self, cfg: Config, scene: Scene, state: GaussianState, opt_state=None,
                  start_step: int = 0, rng_state: Optional[torch.Tensor] = None, mesh=None):
+        if cfg.regularize_diffusion:
+            # Synthetic views are square at the pipeline's resolution, and
+            # the mesh step needs one image shape.
+            raise ValueError("regularize_diffusion runs on the single-device trainer only "
+                             "(train_loop.Trainer); MeshTrainer does not take it")
         if mesh is None:  # --mesh-tile 0 or 1: every rank left over
             mesh = make_mesh(max(cfg.mesh_splat, 1), cfg.mesh_tile if cfg.mesh_tile > 1 else 0)
         self.mesh = mesh

@@ -1,7 +1,7 @@
 """Regularizers: the depth-guided term lives inline in the train step; the
-SuGaR-style density / SDF term lives here. The diffusion-guided views
-(``regularizers/diffusion_guidance.py`` in the JAX package) are ROADMAP
-Queue 1 item 17."""
+SuGaR-style density / SDF term and the diffusion-guided views
+(``diffusion_guidance``, imported by the trainer when it is asked for)
+live here."""
 from .density import (
     DensityProbe,
     approximate_density,

@@ -52,12 +52,6 @@ ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
 
 
-def _not_ported(what: str, needs: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tinysplat_torch yet: it needs {needs}, which a "
-        f"later slice of the port brings (ROADMAP.md Queue 1, {where})")
-
-
 def _resolve_background(cfg: Config, generator: Optional[torch.Generator] = None,
                         device="cpu") -> torch.Tensor:
     """Per-step training background: the fixed colour the GT frames were

@@ -38,8 +38,11 @@ every splat: densify with growth, compaction, the density-probe refresh),
 ``_invalidate_step_cache``, ``_c2f_height_quantum``, ``_global_capacity``
 and ``_budget_bands``. The metrics file is written by rank 0 only.
 
-Not ported yet (raise NotImplementedError): the diffusion views of
-``regularize_diffusion`` (ROADMAP Queue 1 item 17).
+The diffusion views of ``regularize_diffusion``
+(``regularizers.diffusion_guidance``): on cadence inside the window, novel
+views rendered by the current model and refined by the diffusion pipeline
+join the scene as synthetic cameras; the window's end removes them. A
+refresh runs inside the step's lock (``render_camera`` re-enters it).
 """
 from __future__ import annotations
 
@@ -66,7 +69,6 @@ from .regularizers.density import make_density_probe
 from .render import render
 from .scene import Scene
 from .train import (
-    _not_ported,
     fixed_background,
     init_opt_state,
     make_train_step,
@@ -181,9 +183,6 @@ class Trainer:
 
     def __init__(self, cfg: Config, scene: Scene, state: GaussianState, opt_state=None,
                  start_step: int = 0, rng_state: Optional[torch.Tensor] = None):
-        if cfg.regularize_diffusion:
-            raise _not_ported("regularize_diffusion", "regularizers/diffusion_guidance.py",
-                              "item 17")
         self.cfg = cfg
         self.scene = scene
         self.state = state
@@ -220,6 +219,10 @@ class Trainer:
         self.density_probe = None
         self.probe_history: List[dict] = []  # per refresh: step, samples, live, seconds
         self.eval_cameras: List[Camera] = []
+        # regularize_diffusion: the guidance (built at the first refresh) and
+        # the real camera set the synthetic views are appended to.
+        self._diffusion_guidance = None
+        self._diffusion_real_cams: Optional[List[Camera]] = None
         self._last_diag = None  # (intersections, dup_dropped, tile_dropped)
         self._no_shrink_until = 0  # hysteresis after a budget grow
         # Independent binning calls the diagnostics sum over (MeshTrainer:
@@ -444,6 +447,44 @@ class Trainer:
             self.probe_history.append(dict(timings, step=step, samples=cfg.density_samples,
                                            live=int(self.state.num_live())))
 
+    def _maybe_refresh_diffusion_views(self) -> None:
+        """On cadence inside the window, swap freshly refined synthetic views
+        into the scene; once the window has closed, put the real set back
+        (the last views must not keep training the model toward stale
+        frames). Cached frames of replaced synthetic cameras are dropped:
+        the names repeat across refreshes."""
+        cfg, step = self.cfg, self.step
+        if not cfg.regularize_diffusion:
+            return
+        if not cfg.regularize_diffusion_start <= step < cfg.regularize_diffusion_end:
+            if (step >= cfg.regularize_diffusion_end and self._diffusion_real_cams is not None
+                    and len(self.scene.cameras) != len(self._diffusion_real_cams)):
+                self._drop_synthetic_frames()
+                self.scene.cameras = self._diffusion_real_cams
+                log.info("diffusion window ended: synthetic views removed")
+            return
+        first = step == cfg.regularize_diffusion_start or self._diffusion_guidance is None
+        if not first and step % cfg.interval_diffusion != 0:
+            return
+        from .regularizers.diffusion_guidance import DiffusionGuidance
+
+        if self._diffusion_guidance is None:
+            self._diffusion_guidance = DiffusionGuidance(cfg, rng_seed=cfg.seed,
+                                                         device=self.device)
+            self._diffusion_real_cams = list(self.scene.cameras)
+        synth = self._diffusion_guidance.refresh(self, self._diffusion_real_cams)
+        self._drop_synthetic_frames()
+        self.scene.cameras = self._diffusion_real_cams + synth
+        log.info("diffusion guidance: %d synthetic views refreshed at step %d", len(synth), step)
+
+    def _drop_synthetic_frames(self) -> None:
+        """Evict the cached frames (every resolution) of the scene's
+        synthetic cameras."""
+        stale = {c.name for c in self.scene.cameras
+                 if c.name and c.name.startswith("diffusion_")}
+        for k in [k for k in self._image_cache if k[0] in stale]:
+            del self._image_cache[k]
+
     # -- main loop --------------------------------------------------------------------
 
     def train_step(self) -> None:
@@ -455,6 +496,7 @@ class Trainer:
         cfg = self.cfg
         self.step += 1
         self._maybe_refresh_density_probe()
+        self._maybe_refresh_diffusion_views()
         # 0-based sample index: step was just incremented.
         camera = self.scene.get_random_camera(self.step - 1)
         h, w = self._c2f_dims(camera)

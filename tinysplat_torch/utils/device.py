@@ -37,3 +37,17 @@ def timed(timings: Optional[dict], name: str, device) -> Iterator[None]:
     yield
     synchronize(device)
     timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """float32 matmuls and cuDNN convolutions without TF32 inside the block
+    (the JAX package runs at matmul precision "highest"); the flags found
+    are restored on the way out."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
