@@ -128,8 +128,32 @@ exits non-zero):
    stage (VAE encode, UNet per DDIM step, VAE decode) beside each stage's
    FLOP and bound, refresh steps beside plain steps, and peak memory.
 
+13. The quality tools (``tinysplat_torch/scripts``) through their ``main``,
+   each with the launch counters from 0 (K1 and K2 once per training step
+   and per render; K3 0: the tools keep Config's ``grad_reduce`` "scatter"),
+   at their published widths and cut in depth only (``QB_ARGS`` and the rest):
+   (a) ``quality_bench``, 36 GT views of the 91,000-splat scene at 1600x1056
+   (each must drop nothing at max_per_tile 8192), 32 train / 4 eval, 16,000
+   uniform init points in 131,072 slots, 1000 steps with a held-out eval
+   every 250 (the PSNR must rise) and at half scale; K1 on GT view 0 against
+   its plain version on the card (bit for bit) and on CPU copies; (b)
+   ``train_diffusion_prior``, 96 GT views at 128x128 (max_per_tile 16384,
+   nothing dropped, K1 on view 0 as in (a)), 100 VAE and 200 denoiser steps
+   at batch 8 (each loss must fall), the native checkpoint reloaded equal;
+   (c) ``diffusion_ab`` with that prior, 6 + 6 views at 128x128, 4000 init
+   points in 32,768 slots, 160 steps per arm, one refresh at step 40 (K1
+   once per synthetic view); (d) ``quality_real`` on a copy of the in-repo
+   8-view real-photo capture (240x180, OPENCV distortion, sparse_interp
+   depth), 300 steps, the fixture unchanged; (e) ``train_1m_probe``, 20 steps
+   at 1,000,000 live splats, 1600x1056, 8 cameras, GT with nothing dropped.
+   Prints each tool's JSON numbers, seconds and peak device memory.
+
+Phase 9 ends with the ``evaluate`` CLI on its step-12 checkpoint (every
+second view), whose per-view PSNR must equal ``Trainer.evaluate``'s to
+1e-3 dB.
+
 The line before the last is the kernels' JSON record (K1-K3's launches
-sum the counted windows of phases 6, 10, 11 and 12, ``launches_by_phase``;
+sum the counted windows of phases 6, 10, 11, 12 and 13, ``launches_by_phase``;
 phase 11's sum the four ranks' training windows); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -200,6 +224,7 @@ TRAINER_KW = dict(tile_x=64, dup_capacity=2_000_000, span_capacity=2_000_000,
 # imported PLY renders the trainer's frame to this tolerance.
 DATASET_VIEWS, DATASET_POINTS, DATASET_STEPS = 8, N_SPLATS // 2, 12
 EXPORT_TOL = 2e-4
+EVAL_TOL_DB = 1e-3  # the evaluate CLI's per-view PSNR vs Trainer.evaluate's
 # Phase 10: the bench scene trained with SuGaR density regularization (steps
 # 2-12, 100,000 probe samples) and MCMC densify (refine passes at steps 4
 # and 8, every 4 views), then meshed both ways from the step-12 checkpoint.
@@ -241,6 +266,18 @@ SD15_VAE = dict(sample_size=512, in_channels=3, out_channels=3,
                 up_block_types=["UpDecoderBlock2D"] * 4)
 DIFF_STEPS, DIFF_WINDOW, DIFF_INTERVAL, DIFF_REFRESHES = 12, (2, 10), 4, (2, 4, 8)
 SD_CARD_TOL, TINY_CARD_TOL = 1e-4, 1e-4
+# Phase 13: the quality tools (tinysplat_torch/scripts) at their published
+# widths, cut in depth only: quality_bench --iters 7000 -> 1000 (densify_end
+# 666, one densify pass at step 600); train_diffusion_prior's VAE / denoiser
+# steps 1500 / 4000 -> 100 / 200; diffusion_ab --iters 2500 -> 160 with the
+# guidance from step 40 (the window [40, 133) holds exactly one refresh);
+# quality_real --iters 4000 -> 300 on the in-repo 8-view capture; the 1M
+# probe --steps 100 -> 20.
+QB_ARGS = ["--iters", "1000", "--eval-every", "250", "--eval-scales", "0.5"]
+PRIOR_ARGS = ["--vae-steps", "100", "--unet-steps", "200"]
+AB_ARGS = ["--iters", "160", "--diffusion-start", "40"]
+REAL_ARGS = ["--holdout", "4", "--iters", "300", "--eval-every", "100"]
+PROBE_ARGS = ["--steps", "20"]
 
 
 def gpu_name_and_limit() -> str:
@@ -1179,6 +1216,24 @@ def dataset_phase(torch, rc, tt, Config, state, deg, bg, device="cuda", height=H
               f"diff {export_err:.3e} (tol {EXPORT_TOL:g})", flush=True)
         if export_err > EXPORT_TOL:
             raise AssertionError("the imported PLY renders another frame")
+
+        # The evaluate CLI on the step-12 checkpoint, every second view,
+        # against Trainer.evaluate of the same state on the same cameras.
+        from tinysplat_torch.scripts import evaluate
+
+        t0 = time.perf_counter()
+        ev = evaluate.main([ckpt, "--dataset-dir", root, "--holdout", "2"])
+        eval_s = time.perf_counter() - t0
+        held = cams[::2]
+        want = [trainer.evaluate([c])["eval_psnr"] for c in held]
+        deltas = [abs(v["psnr"] - w) for v, w in zip(ev["per_view"], want)]
+        print(f"  evaluate CLI ({eval_s:.3f} s, {ev['views']} views at {width}x{height}): PSNR "
+              f"{[v['psnr'] for v in ev['per_view']]}, SSIM {[v['ssim'] for v in ev['per_view']]}; "
+              f"Trainer.evaluate {[round(w, 4) for w in want]}; max |delta| "
+              f"{max(deltas):.2e} dB (tol {EVAL_TOL_DB:g})", flush=True)
+        if ([v["name"] for v in ev["per_view"]] != [c.name for c in held]
+                or max(deltas) > EVAL_TOL_DB):
+            raise AssertionError("the evaluate CLI disagrees with Trainer.evaluate")
     print(f"  phase 9: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
 
@@ -2029,6 +2084,194 @@ def diffusion_phase(torch, rc, tt, Config, gts):
     return launches
 
 
+def gt_frame_k1(torch, rc, state, cam, height, width, deg, budgets, label):
+    """K1 on one GT frame's tile inputs (the tool's budgets) against its
+    plain version on the card and on CPU copies of the same inputs."""
+    from tinysplat_torch.render import splat_inputs
+
+    with torch.no_grad():
+        s = splat_inputs(state.params, state.alive, cam.params("cuda"), height, width, deg,
+                         torch.zeros(3, device="cuda"))
+        ti = rc.tile_inputs(s.xys, s.proj.depths, s.proj.radii, s.proj.conics, s.colors4,
+                            s.opacities, s.valid, height, width, tile_x=rc.TILE, **budgets)
+    if ti.bins.dup_overflow or ti.bins.tile_overflow:
+        raise AssertionError(f"{label}: the GT frame dropped entries")
+    args = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy, ti.tile_x)
+    got = rc.composite_fwd(*args)
+    card = rc.composite_fwd_plain(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = rc.composite_fwd_plain(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    host_s = time.perf_counter() - t0
+    got_h = got.cpu()
+    err = float((got_h[:, 0:5] - host[:, 0:5]).abs().max())
+    scaled = float(((got_h[:, 0:5] - host[:, 0:5]).abs()
+                    / host[:, 0:5].abs().clamp(min=1.0)).max())
+    card_equal, host_equal = same_bytes(torch, got, card), same_bytes(torch, got_h, host)
+    print(f"  {label}: K1 on the GT frame ({int(ti.counts.sum())} entries, deepest tile "
+          f"{int(ti.counts.max())} of max_per_tile {budgets['max_per_tile']}): bit-equal to the "
+          f"plain version on the card {card_equal}, on CPU copies {host_equal} (max |diff| "
+          f"{err:.3e}, scaled {scaled:.3e}, tol {KERNEL_TOL:g}; the CPU walk {host_s:.1f} s)",
+          flush=True)
+    if not card_equal or scaled > KERNEL_TOL:
+        raise AssertionError(f"{label}: K1 disagrees with its plain version on a GT frame")
+
+
+def falls(xs, k=10):
+    """The mean of the last k values is below that of the first k."""
+    return statistics.mean(xs[-k:]) < statistics.mean(xs[:k])
+
+
+def quality_phase(torch, rc):
+    """Phase 13: the quality tools on the card; see the module docstring.
+    Returns K1-K3's launches over the tools' runs."""
+    import shutil
+
+    from tinysplat_torch.data.synthetic import orbit_cameras
+    from tinysplat_torch.diffusion.pipeline import TinysplatDiffusionPipeline
+    from tinysplat_torch.scripts import (
+        diffusion_ab, quality_bench, quality_real, train_1m_probe, train_diffusion_prior)
+
+    phase_t0 = time.perf_counter()
+    kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+    total = {k.__name__: 0 for k in kernels}
+    card = gpu_name_and_limit()
+    print(f"phase 13: the quality tools on the card ({card})", flush=True)
+
+    def run(label, fn, want):
+        """``fn()`` with the launch counters from 0; checks them against
+        ``want(result)`` and adds them to the phase's totals."""
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels}
+        check_launches(launches, want(out), f"phase 13 {label}")
+        for name, n in launches.items():
+            total[name] += n
+        print(f"  {label}: {secs:.1f} s, launches {launches}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        return out
+
+    saved_tmp = tempfile.tempdir
+    with tempfile.TemporaryDirectory() as tmp:
+        tempfile.tempdir = tmp  # quality_bench's checkpoint lands here
+        try:
+            # (a) the synthetic quality bench at its published shape.
+            qb = run("(a) quality_bench", lambda: quality_bench.main(
+                QB_ARGS + ["--out", os.path.join(tmp, "quality.json")]),
+                # K1: 36 GT views, the steps, 4 eval views at each eval and the
+                # last, the train-camera check, GT and model at half scale.
+                lambda o: {"composite_fwd": 36 + o["iters"] + 4 * (len(o["eval_history"]) + 1)
+                           + 1 + 2 * 4, "composite_bwd": o["iters"], "segsum": 0})
+            hist = qb["eval_history"]
+            print(f"  (a) held-out PSNR {qb['value']} dB, SSIM {qb['eval_ssim']}, half scale "
+                  f"{qb.get('multiscale_psnr')}; eval history {hist}; steps/s "
+                  f"{qb['steps_per_s']}; train minutes {qb['train_minutes']}; "
+                  f"{qb['num_splats']} live of {qb['capacity']}; "
+                  f"minutes to 27 dB {qb['minutes_to_27dB']}", flush=True)
+            if not (hist[-1]["step"] == 1000 and hist[0]["step"] == 250
+                    and hist[-1]["psnr"] > hist[0]["psnr"] and np.isfinite(qb["value"])):
+                raise AssertionError("quality_bench: held-out PSNR did not rise")
+            scene = quality_bench.make_gt_scene()
+            gt = quality_bench.make_gt_state(*scene, 3, "cuda")
+            cam = orbit_cameras(36, width=1600, height=1056, radius=3.2, fov=0.9)[0]
+            gt_frame_k1(torch, rc, gt, cam, 1056, 1600, 3, dict(
+                dup_capacity=quality_bench.GT_DUP_CAPACITY, max_per_tile=8192,
+                span_capacity=quality_bench.GT_SPAN_CAPACITY), "(a) GT view 0")
+            del gt
+
+            # (b) the prior at its default shapes.
+            prior_dir = os.path.join(tmp, "prior")
+            ph = {}
+            run("(b) train_diffusion_prior", lambda: train_diffusion_prior.main(
+                PRIOR_ARGS + ["--out-dir", prior_dir], history=ph),
+                lambda o: {"composite_fwd": 96, "composite_bwd": 0, "segsum": 0})
+            vl, dl = ph["vae_loss"], ph["denoiser_loss"]
+            print(f"  (b) GT dropped {sum(ph['gt_dropped'])} over {len(ph['gt_dropped'])} views "
+                  f"at 128x128 ({ph['render_s']:.2f} s); VAE {len(vl)} steps, "
+                  f"{ph['vae_s'] / len(vl) * 1e3:.2f} ms a step, loss {vl[0]:.5f} -> "
+                  f"{statistics.mean(vl[-10:]):.5f} (last 10); denoiser {len(dl)} steps, "
+                  f"{ph['denoiser_s'] / len(dl) * 1e3:.2f} ms a step, eps-mse {dl[0]:.4f} -> "
+                  f"{statistics.mean(dl[-10:]):.4f} (last 10)", flush=True)
+            if any(ph["gt_dropped"]) or not (falls(vl) and falls(dl)):
+                raise AssertionError("train_diffusion_prior: dropped GT entries or no fall")
+            loaded = TinysplatDiffusionPipeline.load_native(prior_dir, device="cuda")
+            for part, mod in ph["pipeline"].parts().items():
+                ref = mod.state_dict()
+                for key, val in loaded.parts()[part].state_dict().items():
+                    if not torch.equal(val, ref[key]):
+                        raise AssertionError(f"the prior reloads another {part}.{key}")
+            print("  (b) load_native of the written prior: every tensor equal", flush=True)
+            s40 = quality_bench.make_gt_scene(n_clusters=40, per_cluster=400)
+            n40 = len(s40[0])
+            gt = quality_bench.make_gt_state(*s40, 1, "cuda")
+            cam = orbit_cameras(96, width=128, height=128, radius=3.2, fov=0.9)[0]
+            gt_frame_k1(torch, rc, gt, cam, 128, 128, 1, dict(
+                dup_capacity=24 * n40, max_per_tile=16384, span_capacity=10 * n40),
+                "(b) GT view 0")
+            del gt
+
+            # (c) the A/B with (b)'s prior.
+            ah = {}
+            ab = run("(c) diffusion_ab", lambda: diffusion_ab.main(
+                AB_ARGS + ["--prior-dir", prior_dir, "--out", os.path.join(tmp, "ab.json")],
+                history=ah), lambda o: {  # K1: GT, each arm's steps and evals, refresh renders
+                    "composite_fwd": 12 + 2 * (o["iters"] + o["eval_views"])
+                    + len(ah["guided"]._diffusion_guidance.cameras),
+                    "composite_bwd": 2 * o["iters"], "segsum": 0})
+            synth = ah["guided"]._diffusion_guidance.cameras
+            print(f"  (c) plain {ab['plain']}, guided {ab['guided']}: delta {ab['value']} dB; "
+                  f"{len(synth)} synthetic views at {synth[0].width}x{synth[0].height} in the "
+                  f"one refresh; GT dropped {sum(ah['gt_dropped'])}", flush=True)
+            if (not (np.isfinite(ab["plain"]["eval_psnr"]) and np.isfinite(ab["guided"]["eval_psnr"]))
+                    or any(ah["gt_dropped"]) or ah["plain"]._diffusion_guidance is not None):
+                raise AssertionError("diffusion_ab: a non-finite arm or dropped GT entries")
+
+            # (d) the real-capture bench on a copy of the in-repo capture.
+            fixture = os.path.join(HERE, "tests", "fixtures", "real_colmap")
+            before = sorted((os.path.relpath(os.path.join(d, f), fixture),
+                             os.path.getsize(os.path.join(d, f)))
+                            for d, _, files in os.walk(fixture) for f in files)
+            scene_dir = os.path.join(tmp, "real_scene")
+            shutil.copytree(fixture, scene_dir)
+            qr = run("(d) quality_real", lambda: quality_real.main(
+                REAL_ARGS + ["--scene-dir", scene_dir, "--out", os.path.join(tmp, "real.json")]),
+                lambda o: {"composite_fwd": o["iters"] + 2 * (len(o["eval_history"]) + 1),
+                           "composite_bwd": o["iters"], "segsum": 0})
+            after = sorted((os.path.relpath(os.path.join(d, f), fixture),
+                            os.path.getsize(os.path.join(d, f)))
+                           for d, _, files in os.walk(fixture) for f in files)
+            print(f"  (d) {qr['views']} real views at {qr['resolution']}: held-out PSNR "
+                  f"{qr['value']} dB, SSIM {qr['eval_ssim']}; eval history "
+                  f"{qr['eval_history']}; steps/s {qr['steps_per_s']}; {qr['num_splats']} live; "
+                  f"depth maps {len(os.listdir(os.path.join(scene_dir, 'depths')))}", flush=True)
+            if not np.isfinite(qr["value"]) or after != before:
+                raise AssertionError("quality_real: non-finite, or the fixture changed")
+
+            # (e) the Trainer at 1M live splats.
+            eh = {}
+            pr = run("(e) train_1m_probe", lambda: train_1m_probe.main(
+                PROBE_ARGS + ["--out", os.path.join(tmp, "probe.json")], history=eh),
+                lambda o: {"composite_fwd": 8 + 2 + o["steps"], "composite_bwd": o["steps"],
+                           "segsum": 0})
+            print(f"  (e) {pr['n_splats']} live splats at {pr['resolution']}: {pr['value']} "
+                  f"steps/s; PSNR {pr['psnr_start']} -> {pr['psnr_end']}; losses "
+                  f"{[round(x, 5) for x in eh['losses']]}; intersections "
+                  f"{pr['n_intersections']}, dropped {pr['dup_dropped']} + {pr['tile_dropped']}; "
+                  f"tuned budgets {pr['tuned_budgets']}; GT dropped {pr['gt_dropped']}",
+                  flush=True)
+            if pr["gt_dropped"] or not np.isfinite(eh["losses"]).all():
+                raise AssertionError("train_1m_probe: GT entries dropped or a non-finite loss")
+        finally:
+            tempfile.tempdir = saved_tmp
+    print(f"  phase 13: launches {total}; {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2052,7 +2295,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
     host = {}
-    for mod in ("PIL", "cv2", "websockets", "scipy"):
+    for mod in ("PIL", "cv2", "websockets", "scipy", "matplotlib"):
         try:
             host[mod] = getattr(__import__(mod), "__version__", "?")
         except ImportError:
@@ -2354,9 +2597,13 @@ def main() -> int:
 
     # -- 12. diffusion-guided novel views -------------------------------------------------
     diffusion_launches = diffusion_phase(torch, rc, tt, Config, gts)
+
+    # -- 13. the quality tools ------------------------------------------------------------
+    quality_launches = quality_phase(torch, rc)
     by_phase = {name: {"6": train_launches[name] if name != "segsum" else
                        mxu_launches["segsum"], "10": mesh_launches[name],
-                       "11": shard_launches[name], "12": diffusion_launches[name]}
+                       "11": shard_launches[name], "12": diffusion_launches[name],
+                       "13": quality_launches[name]}
                 for name in mesh_launches}
 
     record = {"kernels": [{

@@ -130,6 +130,38 @@ def test_k2_matches_plain(name):
     assert (ref.abs().amax(dim=1) > 0).sum() > 100  # a live prefix was compared
 
 
+def _very_deep_case(n, max_per_tile):
+    """One 16 x 64 tile under ``n`` faint wide splats, more than 4096 deep:
+    the per-tile budgets of the GT renders of the quality tools (8192 in
+    quality_bench and train_1m_probe, 16384 in train_diffusion_prior and
+    diffusion_ab). Most (entry, pixel) pairs fall under the alpha floor,
+    so the walk stays live far into the tile."""
+    rng = np.random.default_rng(n)
+    faint = _splats(rng, n, (0, 0), (64, 16), cov=[[400, 0], [0, 400]],
+                    opacity=(0.0040, 0.0045), depth=(1.0, 5.0))
+    return _inputs([faint], 16, 64, 64, n + 1, max_per_tile=max_per_tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,max_per_tile", [(6000, 8192), (12000, 16384)])
+def test_k1_k2_match_plain_past_4096_entries(n, max_per_tile):
+    ti, args, out, gout = _very_deep_case(n, max_per_tile)
+    assert 4096 < int(ti.counts.max()) <= max_per_tile
+    assert int(ti.bins.tile_overflow) == 0
+    ref = rc.composite_fwd_plain(*args, ti.tile_x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert int(out[:, 6].max()) > 4096  # pixels composite entries past 4096
+    got = rc.composite_bwd(*args, out, gout, ti.tile_x)
+    again = rc.composite_bwd(*args, out, gout, ti.tile_x)
+    ref_b = rc.composite_bwd_plain(*args, out, gout, ti.tile_x)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    scale = ref_b.abs().amax(dim=0).clamp(min=1e-30)
+    assert float(((got - ref_b).abs() / scale).max()) <= 1e-5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("stride", [2, 4])
 def test_banded_k1_k2_match_plain(stride):

@@ -16,7 +16,7 @@ import tinysplat_torch as tt
 from tinysplat_torch.data.synthetic import orbit_cameras, synthetic_pcd
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tinysplat_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tinysplat_tpu", "__graft_entry__")
 
 
 def _port_sources():
@@ -105,18 +105,62 @@ def test_slice_g_modules_import_no_jax(module):
 
 
 def test_slice_g_modules_load_no_jax_at_run_time():
-    """Importing the port and every slice-G module in a fresh interpreter
+    """Importing the port and every slice-G and slice-H module in a fresh interpreter
     leaves jax, flax and the JAX package out of sys.modules."""
     import subprocess
     import sys
 
     code = ("import importlib, sys; [importlib.import_module('tinysplat_torch.' + m) for m in "
-            f"{SLICE_G_MODULES!r}]; import tinysplat_torch.train_loop; "
+            f"{SLICE_G_MODULES + SLICE_H_MODULES!r}]; import tinysplat_torch.train_loop; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+SLICE_H_MODULES = ("scripts", "scripts.evaluate", "scripts.quality_bench",
+                   "scripts.make_real_fixture", "scripts.quality_real",
+                   "scripts.train_diffusion_prior", "scripts.diffusion_ab",
+                   "scripts.train_1m_probe")
+JAX_SCRIPTS = {f[:-3] for f in os.listdir(os.path.join(REPO, "scripts")) if f.endswith(".py")}
+
+
+@pytest.mark.parametrize("module", SLICE_H_MODULES)
+def test_slice_h_modules_import_no_jax(module):
+    """The quality tools: package imports of the port, never the JAX
+    package, ``__graft_entry__`` or a JAX script by file name (``from train
+    import ...``, ``import make_real_fixture``)."""
+    test_slice_d_modules_import_no_jax(module)
+    rel = module.replace(".", os.sep)
+    path = os.path.join(REPO, "tinysplat_torch", rel + ".py")
+    if not os.path.exists(path):
+        path = os.path.join(REPO, "tinysplat_torch", rel, "__init__.py")
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in JAX_SCRIPTS | {"scripts", "__graft_entry__"}, f"{path} imports {mod}"
+
+
+TOOLS = ("evaluate", "quality_bench", "quality_real", "train_diffusion_prior",
+         "diffusion_ab", "train_1m_probe")
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_quality_tools_default_to_the_card(tool, tmp_path):
+    """Each tool's --device defaults to cuda and raises without a card,
+    before it writes anything (make_real_fixture is numpy only: no device)."""
+    mod = importlib.import_module(f"tinysplat_torch.scripts.{tool}")
+    assert mod.arg_parser().get_default("device") == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    argv = {"evaluate": [str(tmp_path / "missing.npz"), "--synthetic"],
+            "quality_real": ["--scene-dir", str(tmp_path / "scene")],
+            "train_diffusion_prior": ["--out-dir", str(tmp_path / "prior")],
+            "diffusion_ab": ["--out", str(tmp_path / "ab.json")]}.get(tool, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(argv + ["--out", str(tmp_path / "o.json")] if tool in (
+            "quality_bench", "train_1m_probe") else argv)
+    assert os.listdir(tmp_path) == []
 
 
 def test_cuda_entry_points_raise_without_a_card(tmp_path):
@@ -172,7 +216,7 @@ def test_every_module_imports_without_nvcc():
     names = [m.name for m in pkgutil.walk_packages(tt.__path__, "tinysplat_torch.")]
     for new in ("models.densify", "train_loop", "train_cli", "io.checkpoint",
                 "probes.bitcast", "probes.op_costs") + SLICE_D_MODULES + SLICE_E_MODULES \
-            + SLICE_F_MODULES + SLICE_G_MODULES:
+            + SLICE_F_MODULES + SLICE_G_MODULES + SLICE_H_MODULES:
         assert f"tinysplat_torch.{new}" in names
     for name in names:
         importlib.import_module(name)
