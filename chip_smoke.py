@@ -148,13 +148,32 @@ exits non-zero):
    at 1,000,000 live splats, 1600x1056, 8 cameras, GT with nothing dropped.
    Prints each tool's JSON numbers, seconds and peak device memory.
 
+14. The profiling, sweep and scaling tools (``tinysplat_torch/scripts``)
+   through their ``main`` at their defaults, each with the launch counters
+   from 0 and its launches checked against its count of gradients: (a)
+   ``profile_bench``, the bench scene at 16-px tiles and its own budgets
+   (``max_per_tile`` 2048): its drop counters are printed, its top-ops table
+   must name K1's and K2's ``__global__`` functions and its kernel-busy share
+   lie in (0, 1]; (b) ``profile_train_step``: its top 15 rows, busy share
+   and device ms a step; (c) ``sweep_bench`` with JAX's three configs and
+   ``mxu:8:128:64``, then with ``--diag``: no line may hold an ``error`` or
+   claim ``tiles_per_block`` was read, and the mxu config must launch K3;
+   (d) ``scaling_bench``, 8 ranks on the card at 512x512 and 4 cameras,
+   each rank's launches counted too; its line printed beside the band
+   counts of ``SCALING_r03.json`` (a CPU run of the JAX package, for
+   context: no assertion, and no time compared); (e) ``scaling_model`` at
+   its widths (217,000 splats at 1600x1024), every band probed to drop
+   nothing. Cuts: none (``SM_ARGS`` keeps --iters 20). Prints each tool's
+   seconds and peak device memory and the phase's seconds.
+
 Phase 9 ends with the ``evaluate`` CLI on its step-12 checkpoint (every
 second view), whose per-view PSNR must equal ``Trainer.evaluate``'s to
 1e-3 dB.
 
 The line before the last is the kernels' JSON record (K1-K3's launches
-sum the counted windows of phases 6, 10, 11, 12 and 13, ``launches_by_phase``;
-phase 11's sum the four ranks' training windows); the last line is
+sum the counted windows of phases 6, 10, 11, 12, 13 and 14,
+``launches_by_phase``; phase 11's sum the four ranks' training windows and
+phase 14's include scaling_bench's nine ranks); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -278,6 +297,13 @@ PRIOR_ARGS = ["--vae-steps", "100", "--unet-steps", "200"]
 AB_ARGS = ["--iters", "160", "--diffusion-start", "40"]
 REAL_ARGS = ["--holdout", "4", "--iters", "300", "--eval-every", "100"]
 PROBE_ARGS = ["--steps", "20"]
+# Phase 14: the profiling, sweep and scaling tools at their defaults (no cut:
+# scaling_model keeps --iters 20). The sweep adds one "mxu" config at 64-px
+# tiles to JAX's three, so that it reaches K3. The tables must name K1's
+# and K2's __global__ functions.
+SWEEP_CONFIGS = ["sorted:8:128", "segment:8:128", "scatter:8:128", "mxu:8:128:64"]
+SM_ARGS = ["--iters", "20"]
+K1_NAME, K2_NAME = "composite_fwd_kernel", "composite_bwd_kernel"
 
 
 def gpu_name_and_limit() -> str:
@@ -2122,6 +2148,27 @@ def falls(xs, k=10):
     return statistics.mean(xs[-k:]) < statistics.mean(xs[:k])
 
 
+def run_counted(torch, rc, total, phase, label, fn, want):
+    """``fn()`` with K1-K3's launch counters from 0; checks them against
+    ``want(result)``, adds them to ``total`` and prints the seconds and the
+    peak device memory."""
+    kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    check_launches(launches, want(out), f"{phase} {label}")
+    for name, n in launches.items():
+        total[name] += n
+    print(f"  {label}: {secs:.1f} s, launches {launches}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return out
+
+
 def quality_phase(torch, rc):
     """Phase 13: the quality tools on the card; see the module docstring.
     Returns K1-K3's launches over the tools' runs."""
@@ -2133,28 +2180,12 @@ def quality_phase(torch, rc):
         diffusion_ab, quality_bench, quality_real, train_1m_probe, train_diffusion_prior)
 
     phase_t0 = time.perf_counter()
-    kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
-    total = {k.__name__: 0 for k in kernels}
+    total = {k.__name__: 0 for k in (rc.composite_fwd, rc.composite_bwd, rc.segsum)}
     card = gpu_name_and_limit()
     print(f"phase 13: the quality tools on the card ({card})", flush=True)
 
     def run(label, fn, want):
-        """``fn()`` with the launch counters from 0; checks them against
-        ``want(result)`` and adds them to the phase's totals."""
-        for k in kernels:
-            k.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in kernels}
-        check_launches(launches, want(out), f"phase 13 {label}")
-        for name, n in launches.items():
-            total[name] += n
-        print(f"  {label}: {secs:.1f} s, launches {launches}, peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-        return out
+        return run_counted(torch, rc, total, "phase 13", label, fn, want)
 
     saved_tmp = tempfile.tempdir
     with tempfile.TemporaryDirectory() as tmp:
@@ -2269,6 +2300,122 @@ def quality_phase(torch, rc):
         finally:
             tempfile.tempdir = saved_tmp
     print(f"  phase 13: launches {total}; {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return total
+
+
+def sweep_launches(lines, label, grads, k3):
+    """K1-K3 of a sweep of ``grads`` gradients a config, ``k3`` of them
+    through K3; raises first on a line with an error or one that claims
+    ``tpb`` was read."""
+    for line in lines:
+        if "error" in line or line.get("tiles_per_block_read") is not False:
+            raise AssertionError(f"{label}: {line}")
+    return {"composite_fwd": grads * len(lines), "composite_bwd": grads * len(lines),
+            "segsum": k3}
+
+
+def scaling_model_launches(o):
+    """K1-K3 of ``scaling_model.main`` at ``SM_ARGS``: the plain and the
+    (1, 1) sharded step (one warm-up + --iters each), the full-frame probe,
+    and per band count t the drop probe and gradient (2 warm-up + max(iters
+    // 2, 8)) of each offset, the band's sharded step and its plain band
+    gradient (2 warm-up + --iters)."""
+    from tinysplat_torch.scripts import scaling_model
+
+    it, H = int(SM_ARGS[SM_ARGS.index("--iters") + 1]), o["resolution"][0]
+    bands = [t for t in scaling_model.BANDS if (H // 16) % t == 0]
+    k2 = 2 * (1 + it) + sum(t * (2 + max(it // 2, 8)) + (1 + it) + (2 + it) for t in bands)
+    return {"composite_fwd": k2 + 1 + sum(bands), "composite_bwd": k2, "segsum": 0}
+
+
+def tools_phase(torch, rc):
+    """Phase 14: the profiling, sweep and scaling tools on the card; see the
+    module docstring. Returns K1-K3's launches over the tools' runs, the
+    ranks of scaling_bench included."""
+    from tinysplat_torch.scripts import (
+        profile_bench, profile_train_step, scaling_bench, scaling_model, sweep_bench)
+
+    phase_t0 = time.perf_counter()
+    total = {k.__name__: 0 for k in (rc.composite_fwd, rc.composite_bwd, rc.segsum)}
+    print(f"phase 14: the profiling, sweep and scaling tools on the card "
+          f"({gpu_name_and_limit()})", flush=True)
+
+    def run(label, fn, want):
+        return run_counted(torch, rc, total, "phase 14", label, fn, want)
+
+    def fwd_bwd(n, k3=0):
+        return {"composite_fwd": n, "composite_bwd": n, "segsum": k3}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the bench scene's render gradient: warm-up + 3 under the profiler.
+        pb = run("(a) profile_bench", lambda: profile_bench.main(
+            ["--logdir", os.path.join(tmp, "pb")]), lambda o: fwd_bwd(4))
+        ops = [op for op, _, _ in pb["rows"]]
+        share = pb["kernel_busy_share"]
+        print(f"  (a) binning at profile_bench's budgets: {pb['binning']}; kernel-busy share "
+              f"{share}; {pb['line']} total {pb['total_ms_per_iter']:.4f} ms an iteration",
+              flush=True)
+        if not (any(K1_NAME in op for op in ops) and any(K2_NAME in op for op in ops)):
+            raise AssertionError(f"profile_bench's table does not name K1 and K2: {ops}")
+        if share is None or not 0.0 < share <= 1.0:
+            raise AssertionError(f"profile_bench's kernel-busy share {share}")
+
+        # (b) the bare train step: warm-up + 3 under the profiler.
+        ts = run("(b) profile_train_step", lambda: profile_train_step.main(
+            ["--logdir", os.path.join(tmp, "ts")]), lambda o: fwd_bwd(4))
+        print(f"  (b) the step: {ts['line']} total {ts['total_ms_per_iter']:.4f} ms a step, "
+              f"kernel-busy share {ts['kernel_busy_share']}; top 15 (op, ms a step, count): "
+              f"{[(op[:70], round(ms, 4), n) for op, ms, n in ts['rows'][:15]]}", flush=True)
+        if not (ts["kernel_busy_share"] and np.isfinite(ts["loss"])):
+            raise AssertionError("profile_train_step: no device trace or a non-finite loss")
+
+        # (c) JAX's three configs + "mxu" at 64-px tiles; each config runs
+        # 1 + warmup 3 + iters 12 gradients (K3 only under "mxu"), then one
+        # gradient each with --diag.
+        sweep = run("(c) sweep_bench", lambda: sweep_bench.main(["--configs", *SWEEP_CONFIGS]),
+                    lambda o: sweep_launches(o, "sweep_bench", 16, 16))
+        diag = run("(c) sweep_bench --diag", lambda: sweep_bench.main(
+            ["--configs", *SWEEP_CONFIGS, "--diag"]),
+            lambda o: sweep_launches(o, "sweep_bench --diag", 1, 1))
+        for line, d in zip(sweep, diag):
+            print(f"  (c) {line['config']}: {line['ms_per_iter']} ms an iteration, "
+                  f"{line['msplats_s']} Msplats/s; binning {d['diag']}", flush=True)
+
+        # (d) band spread + 8 ranks sharing the card vs a 1-rank world.
+        hist = {}
+        sb = run("(d) scaling_bench", lambda: scaling_bench.main(
+            ["--out", os.path.join(tmp, "scaling.json")], history=hist),
+            lambda o: fwd_bwd(0))  # part 1 bins only; the steps run in the ranks
+        ranks = hist["ranks"] + hist["ranks_1"]
+        for r in ranks:
+            check_launches(r["launches"], fwd_bwd(1 + scaling_bench.STEP_ITERS),
+                           f"phase 14 (d) rank {r['rank']} of {len(hist['ranks'])}")
+            for name, n in r["launches"].items():
+                total[name] += n
+        with open(os.path.join(HERE, "SCALING_r03.json")) as f:
+            ref = json.load(f)
+        keys = [k for k in ref if k.startswith("band_")]
+        print(f"  (d) {json.dumps(sb)}", flush=True)
+        print(f"  (d) band counts here {[sb[k] for k in keys]} beside SCALING_r03.json's (a CPU "
+              f"run of older JAX code, for context) {[ref[k] for k in keys]} ({keys}); per "
+              f"camera (contiguous, interleaved) {hist['band_counts']}; step ms by rank "
+              f"{[round(r['ms'], 1) for r in hist['ranks']]}, 1-rank world "
+              f"{round(hist['ranks_1'][0]['ms'], 1)}", flush=True)
+
+        # (e) the scaling model at its widths.
+        hist = {}
+        sm = run("(e) scaling_model", lambda: scaling_model.main(
+            SM_ARGS + ["--out", os.path.join(tmp, "model.json")], history=hist),
+            scaling_model_launches)
+        if any(d for per_off in hist["drops"].values() for d in per_off):
+            raise AssertionError(f"scaling_model: a band dropped entries {hist['drops']}")
+        offsets = {t: len(d) for t, d in hist["drops"].items()}
+        print(f"  (e) {sm['n_splats']} splats, {sm['intersections_full_frame']} intersections "
+              f"at {sm['resolution']}; no band dropped an entry (offsets by t {offsets}); "
+              f"measured_on_chip {json.dumps(sm['measured_on_chip'])}", flush=True)
+        print(f"  (e) link {sm['link']}; value {sm['value']}; predicted "
+              f"{json.dumps(sm['predicted'])}", flush=True)
+    print(f"  phase 14: launches {total}; {time.perf_counter() - phase_t0:.1f} s", flush=True)
     return total
 
 
@@ -2600,10 +2747,13 @@ def main() -> int:
 
     # -- 13. the quality tools ------------------------------------------------------------
     quality_launches = quality_phase(torch, rc)
+
+    # -- 14. the profiling, sweep and scaling tools ------------------------------------------
+    tools_launches = tools_phase(torch, rc)
     by_phase = {name: {"6": train_launches[name] if name != "segsum" else
                        mxu_launches["segsum"], "10": mesh_launches[name],
                        "11": shard_launches[name], "12": diffusion_launches[name],
-                       "13": quality_launches[name]}
+                       "13": quality_launches[name], "14": tools_launches[name]}
                 for name in mesh_launches}
 
     record = {"kernels": [{

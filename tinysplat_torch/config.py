@@ -138,7 +138,7 @@ class Config:
     # fewer intersections. The CUDA kernel takes 16 to 64.
     tile_x: int = 64
     # Multi-chip: round-robin 16px tile ROWS over the mesh 'tile' axis
-    # instead of contiguous bands (the sharded trainer; not ported yet).
+    # instead of contiguous bands (parallel.make_sharded_train_step).
     band_interleave: bool = True
     # Mip-Splatting opacity compensation (beyond-reference; the legacy
     # gsplat API has no antialiased mode). See render.antialias_compensation.

@@ -74,6 +74,9 @@ from .train import (
     make_train_step,
     optimizer_with_moments,
 )
+from .utils import profiling
+from .utils.device import synchronize
+from .utils.profiling import kernel_busy_share  # noqa: F401 (re-exported)
 
 log = logging.getLogger(__name__)
 
@@ -153,29 +156,6 @@ def _adam_row(table, m, v, cnt, slot: int, g, lr: float) -> None:
     vhat = v_s / (1 - b2 ** c.to(torch.float32))
     table[slot] += -lr * mhat / (torch.sqrt(vhat) + eps)
     m[slot], v[slot], cnt[slot] = m_s, v_s, c
-
-
-def kernel_busy_share(prof) -> Optional[float]:
-    """Share of a profiler window's traced wall time in which at least one
-    CUDA kernel ran (None when the trace holds no device events)."""
-    spans, kernels = [], []
-    for e in prof.events():
-        spans.append((e.time_range.start, e.time_range.end))
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels.append((e.time_range.start, e.time_range.end))
-    if not kernels or not spans:
-        return None
-    lo = min(s for s, _ in spans + kernels)
-    hi = max(e for _, e in spans + kernels)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(kernels):
-        if cur_e is None or s > cur_e:
-            busy += 0.0 if cur_e is None else cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    return busy / max(hi - lo, 1e-9)
 
 
 class Trainer:
@@ -709,27 +689,18 @@ class Trainer:
         if cfg.profile_steps <= 0:
             return
         if self.step == cfg.profile_start and self._prof is None:
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            self._prof = torch.profiler.profile(activities=acts)
+            self._prof = torch.profiler.profile(activities=profiling.activities(self.device))
             self._prof.start()
         elif self._prof is not None and self.step >= cfg.profile_start + cfg.profile_steps:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            synchronize(self.device)
             prof, self._prof = self._prof, None
             prof.stop()
             os.makedirs(cfg.profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
-            sort = "cuda_time_total" if self.device.type == "cuda" else "cpu_time_total"
-            table = prof.key_averages().table(sort_by=sort, row_limit=25)
-            share = kernel_busy_share(prof)
+            table, share = profiling.print_window(
+                prof, self.device, f"profile window ({cfg.profile_steps} steps)")
             self.profile_summary = {"steps": cfg.profile_steps, "table": table,
                                     "kernel_busy_share": share}
-            print(table, flush=True)
-            print(f"profile window ({cfg.profile_steps} steps): a CUDA kernel ran in "
-                  f"{'no device trace' if share is None else f'{share:.4f}'} of the traced "
-                  "wall time", flush=True)
 
     def _maybe_eval(self) -> None:
         if (self.cfg.eval_interval and self.eval_cameras
