@@ -166,12 +166,28 @@ exits non-zero):
    nothing. Cuts: none (``SM_ARGS`` keeps --iters 20). Prints each tool's
    seconds and peak device memory and the phase's seconds.
 
+15. The headline bench (``tinysplat_torch/scripts/bench.py``) through its
+   ``main`` at its defaults (the bench scene, 262,144 splats at 1066x1600,
+   5 warm-up + 30 timed gradients, then 1 + 15 train steps), once with
+   ``--grad-reduce scatter`` and once with ``mxu``, each with the launch
+   counters from 0: K1 = K2 = 51 a run, K3 51 under "mxu" and 0 under
+   "scatter". Each run must print its headline and final JSON lines last,
+   with the keys of ``BENCH_r05.json``'s record (a TPU v5e run of the JAX
+   package: its numbers are printed for context only), finite positive
+   numbers, no entry dropped by the timed gradient or the first train step,
+   the same device memory in use after the timed gradients as before them,
+   and a peak after them within the allocator's slack of the first
+   gradient's (``LARGE_BLOCK_SLACK``). Then ``python -m
+   tinysplat_torch.scripts.bench --headline-only`` runs as a process of its
+   own and must print a headline. Prints each run's lines, seconds and
+   device memory.
+
 Phase 9 ends with the ``evaluate`` CLI on its step-12 checkpoint (every
 second view), whose per-view PSNR must equal ``Trainer.evaluate``'s to
 1e-3 dB.
 
 The line before the last is the kernels' JSON record (K1-K3's launches
-sum the counted windows of phases 6, 10, 11, 12, 13 and 14,
+sum the counted windows of phases 6, 10, 11, 12, 13, 14 and 15,
 ``launches_by_phase``; phase 11's sum the four ranks' training windows and
 phase 14's include scaling_bench's nine ranks); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -186,6 +202,8 @@ import tempfile
 import time
 
 import numpy as np
+
+from tinysplat_torch.utils.device import gpu_name_and_limit
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -304,13 +322,15 @@ PROBE_ARGS = ["--steps", "20"]
 SWEEP_CONFIGS = ["sorted:8:128", "segment:8:128", "scatter:8:128", "mxu:8:128:64"]
 SM_ARGS = ["--iters", "20"]
 K1_NAME, K2_NAME = "composite_fwd_kernel", "composite_bwd_kernel"
-
-
-def gpu_name_and_limit() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+# Phase 15: the headline bench at its defaults, no cut. No gradient is kept
+# from one iteration to the next: the memory in use after the timed
+# gradients must equal that before them, and the peak after them may exceed
+# the first gradient's only by the allocator's slack. A cached block of the
+# large pool is split only when more than LARGE_BLOCK_SLACK would be left
+# over, so each large block handed out may exceed its request by that much.
+BENCH_RUNS = (("scatter", []), ("mxu", ["--grad-reduce", "mxu"]))
+BENCH_TRAIN_KEYS = {"train_step_ms", "train_steps_per_s", "rays_per_s"}  # the final line's own
+LARGE_BLOCK_SLACK = 1 << 20
 
 
 def compare_kernel(torch, rc, args, label):
@@ -2419,6 +2439,87 @@ def tools_phase(torch, rc):
     return total
 
 
+def bench_lines(out, keys, label):
+    """The headline and final JSON lines that end a bench run's ``out``,
+    checked against ``keys``; raises unless they are its last two lines."""
+    lines = out.strip().splitlines()
+    headline, final = (json.loads(s) for s in lines[-2:])
+    if set(final) != keys or set(headline) != keys - BENCH_TRAIN_KEYS:
+        raise AssertionError(f"{label}: the bench's lines carry other keys: {lines[-2:]}")
+    if any(headline[k] != final[k] for k in headline):
+        raise AssertionError(f"{label}: the final line does not repeat the headline")
+    nums = [final[k] for k in ("value", "vs_baseline", *sorted(BENCH_TRAIN_KEYS))]
+    if not all(np.isfinite(x) and x > 0 for x in nums):
+        raise AssertionError(f"{label}: a number is not finite and positive: {final}")
+    return headline, final
+
+
+def bench_phase(torch, rc):
+    """Phase 15: the headline bench on the card; see the module docstring.
+    Returns K1-K3's launches over the bench's in-process runs."""
+    import contextlib
+    import io
+
+    from tinysplat_torch.scripts import bench
+
+    phase_t0 = time.perf_counter()
+    total = {k.__name__: 0 for k in (rc.composite_fwd, rc.composite_bwd, rc.segsum)}
+    print(f"phase 15: the headline bench on the card ({gpu_name_and_limit()})", flush=True)
+    with open(os.path.join(HERE, "BENCH_r05.json")) as f:
+        tpu = json.load(f)["parsed"]
+    keys = set(tpu)
+    iters = bench.arg_parser().get_default("iters")
+    per_run = bench.WARMUP + iters + 1 + max(iters // 2, 5)  # gradients + train steps
+    for label, argv in BENCH_RUNS:
+        hist, buf = {}, io.StringIO()
+
+        def run_bench():
+            with contextlib.redirect_stdout(buf):
+                return bench.main(argv, history=hist)
+
+        record = run_counted(torch, rc, total, "phase 15", f"(a) bench {label}", run_bench,
+                             lambda o: {"composite_fwd": per_run, "composite_bwd": per_run,
+                                        "segsum": per_run if label == "mxu" else 0})
+        for line in buf.getvalue().strip().splitlines():
+            print(f"    | {line}", flush=True)
+        _, final = bench_lines(buf.getvalue(), keys, f"phase 15 {label}")
+        if final != record:
+            raise AssertionError(f"phase 15 {label}: main returned another record")
+        mem = hist["memory"]
+        slack = mem["large_blocks"] * LARGE_BLOCK_SLACK
+        dropped = {k: v for k, v in {**hist["binning"], **hist["train_binning"]}.items()
+                   if "dropped" in k}
+        print(f"  (a) {label}: {final['value']} Msplats/s, train step {final['train_step_ms']} "
+              f"ms, {final['rays_per_s']} rays/s; dropped {dropped}; device memory {mem} "
+              f"(peak growth {mem['run_peak'] - mem['first_peak']} bytes, slack {slack})",
+              flush=True)
+        if any(dropped.values()):
+            raise AssertionError(f"phase 15 {label}: the bench dropped entries {dropped}")
+        if (mem["rest_after"] != mem["rest_before"]
+                or mem["run_peak"] > mem["first_peak"] + slack):
+            raise AssertionError(f"phase 15 {label}: device memory grew over the gradients")
+    print(f"  (a) for context only, BENCH_r05.json (the JAX package on a TPU v5e): "
+          f"{tpu['value']} Msplats/s, train step {tpu['train_step_ms']} ms", flush=True)
+
+    # (b) the CLI alone, in a process of its own.
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tinysplat_torch.scripts.bench",
+                           "--headline-only"], cwd=HERE, capture_output=True, text=True,
+                          timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase 15: the bench CLI failed (exit {proc.returncode}): "
+                             f"{proc.stderr[-2000:]}")
+    headline = json.loads(lines[-1])
+    if set(headline) != keys - BENCH_TRAIN_KEYS or not headline["value"] > 0:
+        raise AssertionError(f"phase 15: the CLI's headline is {lines[-1]}")
+    print(f"  (b) python -m tinysplat_torch.scripts.bench --headline-only: "
+          f"{time.perf_counter() - t0:.1f} s; {lines}", flush=True)
+    print(f"  phase 15: launches {total}; {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2750,10 +2851,14 @@ def main() -> int:
 
     # -- 14. the profiling, sweep and scaling tools ------------------------------------------
     tools_launches = tools_phase(torch, rc)
+
+    # -- 15. the headline bench -------------------------------------------------------------
+    bench_launches = bench_phase(torch, rc)
     by_phase = {name: {"6": train_launches[name] if name != "segsum" else
                        mxu_launches["segsum"], "10": mesh_launches[name],
                        "11": shard_launches[name], "12": diffusion_launches[name],
-                       "13": quality_launches[name], "14": tools_launches[name]}
+                       "13": quality_launches[name], "14": tools_launches[name],
+                       "15": bench_launches[name]}
                 for name in mesh_launches}
 
     record = {"kernels": [{

@@ -26,6 +26,12 @@ And the profiling, sweep and scaling tools:
 - ``scaling_model``: the per-device terms of a (data x tile) mesh measured
   on one card and the modelled rays/s efficiency of larger meshes.
 
+And the headline benchmark, the port of the JAX package's root
+``bench.py``:
+
+- ``bench``: throughput of the bench scene's render gradient (forward and
+  backward, Msplats/s) and the full train step's ms, steps/s and rays/s.
+
 Each runs as ``python -m tinysplat_torch.scripts.<name>`` with the JAX
 script's flags, defaults and JSON keys (the output paths and
 ``scaling_model``'s link figure are the port's own), and on the card

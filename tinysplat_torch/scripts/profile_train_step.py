@@ -28,6 +28,7 @@ from ..data.synthetic import orbit_cameras
 from ..train import init_opt_state, make_train_step
 from ..utils import profiling
 from ..utils.device import resolve_device, synchronize
+from .bench import budgets
 from .profile_bench import BENCH_SCALES, default_logdir
 from .train_1m_probe import _example_state
 
@@ -52,9 +53,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = arg_parser().parse_args(argv)
     dev = resolve_device(args.device)
     H, W = args.height, args.width
-    scale = args.n / (1 << 18)
-    cfg = Config(rasterizer="auto", sh_degree=3, dup_capacity=int(760_000 * scale),
-                 span_capacity=int(786_432 * scale), max_per_tile=4096)
+    dup, span = budgets(args.n)
+    cfg = Config(rasterizer="auto", sh_degree=3, dup_capacity=dup, span_capacity=span,
+                 max_per_tile=4096)
     state = _example_state(args.n, args.n, scale_range=BENCH_SCALES, device=dev)
     opt = init_opt_state(cfg, state)
     cam = orbit_cameras(1, width=W, height=H)[0].params(dev)

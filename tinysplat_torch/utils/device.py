@@ -1,7 +1,9 @@
-"""Device resolution for the port's entry points, and stage timing."""
+"""Device resolution for the port's entry points, the card's name, and
+stage timing."""
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from typing import Iterator, Optional
 
@@ -18,6 +20,16 @@ def resolve_device(device) -> torch.device:
             f"device {str(device)!r} asked for, but torch sees no CUDA device; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def gpu_name_and_limit() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (a card
+    set below its maximum power runs slower under load)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def synchronize(device) -> None:
