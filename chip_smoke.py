@@ -182,12 +182,33 @@ exits non-zero):
    own and must print a headline. Prints each run's lines, seconds and
    device memory.
 
+16. Tile heights other than 16 px (the JAX package's ``tile_size``) on the
+   bench scene (262,144 splats, SH degree 3, 1066x1600, a multiple of
+   neither 8 nor 32: the bottom tiles are ragged), with binning budgets
+   sized from one binning to hold every entry (the intersections and the
+   deepest tile printed; nothing may drop): (a) one frame through
+   ``render`` at phase 4's camera at 8x8, 32x32 and 32x64 tiles (K1 = 3
+   launches), each printed against phase 4's 16x64 frame (render's 3-sigma
+   radius boxes make the frames differ where a splat's alpha support
+   passes its box: which pixels past the box it reaches depends on the
+   tile edges), and with the splats' radii widened to hold their whole
+   alpha support, held to the 16x64 frame at FRAME_TOL (bit-equal
+   expected); K1 bit-equal to its plain version at each frame's shapes; (b)
+   ``train_loop.Trainer`` from phase 6's start and views, 6 steps at 32x32
+   tiles under "mxu" (K1 = K2 = K3 = 6) and 6 at 8x8 under "scatter" (K1 =
+   K2 = 6, K3 = 0): nothing dropped, the objective over the views falls;
+   (c) K2 (within 1e-5 x column max, twice the same bytes) and K3 (bit for
+   bit, twice) against their plain versions at step 0's shapes at 8x8,
+   32x32 and 32x64 tiles; (d) the exact launch counts above; (e) K1's and
+   K2's device times at each shape beside their bounds from the work
+   counters and their 16x64 times from phases 4 and 6.
+
 Phase 9 ends with the ``evaluate`` CLI on its step-12 checkpoint (every
 second view), whose per-view PSNR must equal ``Trainer.evaluate``'s to
 1e-3 dB.
 
 The line before the last is the kernels' JSON record (K1-K3's launches
-sum the counted windows of phases 6, 10, 11, 12, 13, 14 and 15,
+sum the counted windows of phases 6, 10, 11, 12, 13, 14, 15 and 16,
 ``launches_by_phase``; phase 11's sum the four ranks' training windows and
 phase 14's include scaling_bench's nine ranks); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -331,6 +352,15 @@ K1_NAME, K2_NAME = "composite_fwd_kernel", "composite_bwd_kernel"
 BENCH_RUNS = (("scatter", []), ("mxu", ["--grad-reduce", "mxu"]))
 BENCH_TRAIN_KEYS = {"train_step_ms", "train_steps_per_s", "rays_per_s"}  # the final line's own
 LARGE_BLOCK_SLACK = 1 << 20
+# Phase 16: tile heights other than 16 px. Frames at (tile_size, tile_x)
+# (tile_x 0: square tiles, as the JAX 'tiled' backend cuts them); the
+# trainer's runs at (tile_size, grad_reduce), square tiles, from phase 6's
+# start. Budgets hold every entry with TILE_HEADROOM to spare. Frames whose
+# splats' boxes hold their whole alpha support agree with the 16x64 frame
+# to FRAME_TOL (bit for bit expected: the same float ops per pixel).
+TILE_SHAPES = ((8, 0), (32, 0), (32, 64))
+TILE_TRAIN, TILE_STEPS = ((32, "mxu"), (8, "scatter")), 6
+TILE_HEADROOM, FRAME_TOL = 1.25, 1e-6
 
 
 def compare_kernel(torch, rc, args, label):
@@ -485,9 +515,9 @@ def compare_backward(torch, rc, ti, out, gout, label):
 
     Returns (K2 max abs error, K2 rows)."""
     args = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy)
-    rows = rc.composite_bwd(*args, out, gout, ti.tile_x)
-    again = rc.composite_bwd(*args, out, gout, ti.tile_x)
-    ref = rc.composite_bwd_plain(*args, out, gout, ti.tile_x)
+    rows = rc.composite_bwd(*args, out, gout, ti.tile_x, ti.tile_h)
+    again = rc.composite_bwd(*args, out, gout, ti.tile_x, ti.tile_h)
+    ref = rc.composite_bwd_plain(*args, out, gout, ti.tile_x, ti.tile_h)
     torch.cuda.synchronize()
     if not torch.equal(rows.view(torch.int32), again.view(torch.int32)):
         raise AssertionError(f"two K2 launches on {label} gave different bytes")
@@ -539,7 +569,7 @@ def print_counts(rc, ti, out, label):
     """The compositing work counters of one frame (``composite_counts``:
     plain torch over K1's output and the backward's keep masks), printed."""
     c = rc.composite_counts(ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx,
-                            ti.sy, out, ti.tile_x)
+                            ti.sy, out, ti.tile_x, ti.tile_h)
     pairs = c["pairs"]
 
     def stats(d):
@@ -578,9 +608,10 @@ def backward_inputs(torch, rc, train, cam, gt, deg, cfg, budgets=RENDER_KW, dept
         ti = rc.tile_inputs(s.xys, s.proj.depths, s.proj.radii, s.proj.conics, s.colors4,
                             s.opacities, s.valid, height, width, **budgets)
         out = rc.composite_fwd(ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx,
-                               ti.sy, ti.tile_x)
+                               ti.sy, ti.tile_x, ti.tile_h)
     out_g = out.clone().requires_grad_()
-    img, _ = rc.untile(out_g, s.bg4, ti.tiles_x, ti.tiles_y, ti.tile_x, height, width)
+    img, _ = rc.untile(out_g, s.bg4, ti.tiles_x, ti.tiles_y, ti.tile_x, height, width,
+                       ti.tile_h)
     rgb = torch.clamp(img[..., :3], max=1.0)
     loss = ((1.0 - cfg.lambda_dssim) * (rgb - gt).abs().mean()
             + cfg.lambda_dssim * (1.0 - ssim(rgb, gt)))
@@ -1062,15 +1093,17 @@ async def viewer_client(port, trainer, steps, poses, frames):
 
 
 def objective(torch, tt, trainer, cams):
-    """The training loss (L1 + DSSIM + the depth term at step 1's gates)
-    of ``trainer``'s state, averaged over ``cams`` at full resolution."""
+    """The training loss (L1 + DSSIM + the depth term at step 1's gates,
+    where a camera has an estimated depth) of ``trainer``'s state, averaged
+    over ``cams`` at full resolution."""
     st, cfg = trainer.state, trainer.cfg
     bg = torch.zeros(3, device=trainer.device)
     losses = []
     with torch.no_grad():
         for cam in cams:
             gt = trainer._device_image(cam, cam.width, cam.height)
-            depth = torch.as_tensor(cam.estimated_depth, device=trainer.device)
+            depth = (None if cam.estimated_depth is None else
+                     torch.as_tensor(cam.estimated_depth, device=trainer.device))
             loss, _ = tt.compute_losses(st.params, None, st, cam.params(trainer.device), gt,
                                         depth, bg, 1, cfg, cam.height, cam.width)
             losses.append(float(loss))
@@ -2139,7 +2172,7 @@ def gt_frame_k1(torch, rc, state, cam, height, width, deg, budgets, label):
         s = splat_inputs(state.params, state.alive, cam.params("cuda"), height, width, deg,
                          torch.zeros(3, device="cuda"))
         ti = rc.tile_inputs(s.xys, s.proj.depths, s.proj.radii, s.proj.conics, s.colors4,
-                            s.opacities, s.valid, height, width, tile_x=rc.TILE, **budgets)
+                            s.opacities, s.valid, height, width, tile_x=16, **budgets)
     if ti.bins.dup_overflow or ti.bins.tile_overflow:
         raise AssertionError(f"{label}: the GT frame dropped entries")
     args = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy, ti.tile_x)
@@ -2520,6 +2553,208 @@ def bench_phase(torch, rc):
     return total
 
 
+def full_budgets(rc, s, radii, tile_size, tile_x):
+    """Binning budgets of (tile_size, tile_x) tiles of a full-width frame
+    that hold every entry of the projected splats ``s`` (with ``radii``)
+    with TILE_HEADROOM to spare, from one binning at caps that drop
+    nothing: (budgets, intersections, the deepest tile's entries)."""
+    tx = tile_x or tile_size
+    n = s.xys.shape[0]
+    bins = rc.bin_splats_dense(s.xys, s.proj.depths, radii, s.valid, -(-WIDTH // tx),
+                               -(-HEIGHT // tile_size), tile_size, dup_capacity=32 * n,
+                               span_capacity=32 * n, max_per_tile=1 << 20,
+                               conics=s.proj.conics, opacities=s.opacities, tile_size_x=tx)
+    if bins.dup_overflow or bins.tile_overflow:
+        raise AssertionError(f"{tile_size}x{tx} tiles: the sizing caps dropped entries")
+    total, deepest = bins.total_intersections, int(bins.counts.max())
+    dup = -(-int(total * TILE_HEADROOM) // 1024) * 1024
+    return (dict(dup_capacity=dup, span_capacity=dup,
+                 max_per_tile=-(-int(deepest * TILE_HEADROOM) // 128) * 128), total, deepest)
+
+
+def k1_at(torch, rc, ti, label):
+    """K1 against its plain version at ``ti`` (bit for bit), timed, with
+    its counters and bound: (K1 output, {ms, plain_ms, bound_ms, bound_by,
+    pairs})."""
+    from tinysplat_torch.probes import timed_ms
+
+    args = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy, ti.tile_x,
+            ti.tile_h)
+    out = rc.composite_fwd(*args)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    ref = rc.composite_fwd_plain(*args)
+    end.record()
+    end.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"K1 is not bit-equal to its plain version at {label}: max "
+                             f"diff {float((out - ref).abs().max()):.3e}")
+    ms = timed_ms(lambda: rc.composite_fwd(*args), 20, device_only=True)
+    pairs = print_counts(rc, ti, out, label)["pairs"]["k1_box"]
+    bound, by = kernel_bound(nbytes(*args[:6]), nbytes(out), pairs * FLOP_PER_PAIR)
+    return out, dict(ms=ms, plain_ms=start.elapsed_time(end), bound_ms=bound, bound_by=by,
+                     pairs=pairs)
+
+
+def tile_heights_phase(torch, rc, tt, Config, state, deg, bg, cam, frame16, views, gts,
+                       ms16):
+    """Phase 16: tile heights other than 16 px; see the module docstring.
+    ``frame16``: phase 4's (rgb, alpha) at ``cam`` (16 x 64 tiles);
+    ``ms16``: K1's and K2's ms there and at phase 6's step 0. Returns K1-K3's
+    launches in the counted windows."""
+    from tinysplat_torch.data.synthetic import orbit_cameras
+    from tinysplat_torch.probes import timed_ms
+    from tinysplat_torch.render import render, splat_inputs
+    from tinysplat_torch.scene import Scene
+    from tinysplat_torch.train_loop import Trainer
+
+    phase_t0 = time.perf_counter()
+    kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+    total = {k.__name__: 0 for k in kernels}
+    print(f"phase 16: tile heights, {N_SPLATS} splats, {HEIGHT}x{WIDTH} "
+          f"({gpu_name_and_limit()})", flush=True)
+    with torch.no_grad():
+        s = splat_inputs(state.params, state.alive, cam, HEIGHT, WIDTH, deg, bg)
+    budgets = {}
+    for ts, tx in TILE_SHAPES:
+        budgets[ts, tx], inter, deepest = full_budgets(rc, s, s.proj.radii, ts, tx)
+        print(f"  {ts}x{tx or ts} tiles: {inter} intersections, the deepest tile {deepest}; "
+              f"budgets {budgets[ts, tx]}", flush=True)
+
+    # (a) One frame through render() at each tile shape, counted.
+    for k in kernels:
+        k.launches = 0
+    with torch.no_grad():
+        frames = {shape: render(state.params, state.alive, cam, HEIGHT, WIDTH, deg, bg,
+                                tile_size=shape[0], tile_x=shape[1], **budgets[shape])
+                  for shape in TILE_SHAPES}
+    got = {k.__name__: k.launches for k in kernels}
+    want = {"composite_fwd": len(TILE_SHAPES), "composite_bwd": 0, "segsum": 0}
+    check_launches(got, want, "phase 16 (a) frames")
+    total = {k: total[k] + got[k] for k in total}
+    rgb16, alpha16 = frame16
+    for (ts, tx), (rgb, ex) in frames.items():
+        diag = ex["binning"]
+        if diag["dup_dropped"] or diag["tile_dropped"]:
+            raise AssertionError(f"{ts}x{tx or ts} frame dropped entries: {diag}")
+        if rgb.shape != (HEIGHT, WIDTH, 3) or not torch.isfinite(rgb).all():
+            raise AssertionError(f"{ts}x{tx or ts} frame: bad rgb {tuple(rgb.shape)}")
+        diff = torch.maximum((rgb - rgb16).abs().amax(dim=-1), (ex["alpha"] - alpha16).abs())
+        print(f"  (a) {ts}x{tx or ts} frame through render(): {diag['intersections']} "
+              f"intersections, none dropped; against the 16x64 frame max |diff| "
+              f"{float(diff.max()):.3e} at {int((diff > FRAME_TOL).sum())} of {diff.numel()} "
+              f"pixels past {FRAME_TOL:g}", flush=True)
+    # The cause of any difference: render() bins each splat into the tiles
+    # its 3-sigma radius box touches, and alpha stays >= 1/255 out to 3.33
+    # sigma, so the tile edges decide which pixels past the box a splat
+    # reaches. With radii that hold the whole alpha support, every pixel
+    # composites the same splats in the same depth order at every tile
+    # shape: the frames must agree (bit for bit, expected).
+    wide = torch.where(s.proj.radii > 0, torch.ceil(s.proj.radii * 3.5 / 3.0).int() + 1,
+                       s.proj.radii)
+    full = {}
+    for ts, tx in ((16, 64),) + TILE_SHAPES:
+        b = full_budgets(rc, s, wide, ts, tx)[0]
+        full[ts, tx] = rc.rasterize_cuda(s.xys, s.proj.depths, wide, s.proj.conics, s.colors4,
+                                         s.opacities, s.valid, HEIGHT, WIDTH, s.bg4,
+                                         tile_size=ts, tile_x=tx, **b)
+    for shape in TILE_SHAPES:
+        err = max(float((full[shape][0] - full[16, 64][0]).abs().max()),
+                  float((full[shape][1] - full[16, 64][1]).abs().max()))
+        print(f"  (a) radii over the whole alpha support, {shape[0]}x{shape[1] or shape[0]} "
+              f"against 16x64: max |diff| {err:.3e} (tol {FRAME_TOL:g})", flush=True)
+        if err > FRAME_TOL:
+            raise AssertionError(f"phase 16: {shape} tiles composite other splats than 16x64")
+
+    # K1 at each frame's shapes: bit-equal to its plain version, timed.
+    k1 = {}
+    for ts, tx in TILE_SHAPES:
+        ti = rc.tile_inputs(s.xys, s.proj.depths, s.proj.radii, s.proj.conics, s.colors4,
+                            s.opacities, s.valid, HEIGHT, WIDTH, tile_x=tx or ts, tile_h=ts,
+                            **budgets[ts, tx])
+        out, k1[ts, tx] = k1_at(torch, rc, ti, f"the {ts}x{tx or ts} frame")
+        img, alpha = rc.untile(out, s.bg4, ti.tiles_x, ti.tiles_y, ti.tile_x, HEIGHT, WIDTH,
+                               ti.tile_h)
+        rgb, ex = frames[ts, tx]
+        if not (torch.equal(torch.minimum(img[..., :3], img.new_ones(())), rgb)
+                and torch.equal(alpha, ex["alpha"])):
+            raise AssertionError(f"phase 16: the {ts}x{tx} frame is not K1's output")
+
+    # (b) Trainer runs at 32 px ("mxu") and 8 px ("scatter") from phase 6's
+    # start (in its 262,144 slots, as phase 11 starts).
+    cams = orbit_cameras(TRAIN_VIEWS, width=WIDTH, height=HEIGHT)
+    for c, gt in zip(cams, gts):
+        c._image = gt.cpu().numpy()
+    scene = Scene(cams)
+    for ts, reduce in TILE_TRAIN:
+        start = shard_start(torch, "cuda")
+        b = {}
+        for v in views:  # budgets that hold every view's entries at the start
+            with torch.no_grad():
+                sv = splat_inputs(start.params, start.alive, v, HEIGHT, WIDTH, 1, bg)
+            for key, val in full_budgets(rc, sv, sv.proj.radii, ts, 0)[0].items():
+                b[key] = max(b.get(key, 0), val)
+        cfg = Config(background="black", warmup_grad=0, grad_reduce=reduce, tile_size=ts,
+                     tile_x=0, max_iter=TILE_STEPS, **b)
+        tr = Trainer(cfg, scene, start)
+        before = objective(torch, tt, tr, cams)
+        for k in kernels:
+            k.launches = 0
+        losses, drops = [], []
+        for step in range(1, TILE_STEPS + 1):
+            tr.run(step)
+            m = tr.last_metrics
+            losses.append(float(m["loss"]))
+            drops.append(int(m["n_dup_dropped"]) + int(m["n_tile_dropped"]))
+        torch.cuda.synchronize()
+        got = {k.__name__: k.launches for k in kernels}
+        total = {k: total[k] + got[k] for k in total}
+        after = objective(torch, tt, tr, cams)
+        print(f"  (b) Trainer at {ts}x{ts} tiles, {reduce}, budgets {b}: launches {got}; "
+              f"losses {[round(x, 5) for x in losses]}; dropped {drops}; the objective over "
+              f"the {len(cams)} views {before:.5f} -> {after:.5f}", flush=True)
+        check_launches(got, {"composite_fwd": TILE_STEPS, "composite_bwd": TILE_STEPS,
+                             "segsum": TILE_STEPS if reduce == "mxu" else 0},
+                       f"phase 16 (b) {ts} px")
+        if any(drops) or not all(np.isfinite(losses)) or not after < before:
+            raise AssertionError(f"phase 16 (b) {ts} px: drops, a non-finite loss or no fall")
+
+    # (c) K2 (and K3, under every reduction) against the plain versions at
+    # step 0's shapes of each tile shape; (e) K2 timed beside its bound.
+    start = shard_start(torch, "cuda")
+    base = Config(background="black", warmup_grad=0)
+    with torch.no_grad():
+        sv = splat_inputs(start.params, start.alive, views[0], HEIGHT, WIDTH, 1, bg)
+    k2 = {}
+    for ts, tx in TILE_SHAPES:
+        b = full_budgets(rc, sv, sv.proj.radii, ts, tx)[0]
+        ti, out, gout = backward_inputs(torch, rc, start, views[0], gts[0], 1, base,
+                                        dict(b, tile_x=tx or ts, tile_h=ts))
+        label = f"step 0 at {ts}x{tx or ts} tiles"
+        err, rows = compare_backward(torch, rc, ti, out, gout, label)
+        bargs = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy, out, gout,
+                 ti.tile_x, ti.tile_h)
+        ms = timed_ms(lambda: rc.composite_bwd(*bargs), 20, device_only=True)
+        plain_ms = timed_ms(lambda: rc.composite_bwd_plain(*bargs), 1, device_only=True)
+        counts = print_counts(rc, ti, out, label)
+        bound, by = kernel_bound(nbytes(*bargs[:6], out[:, 4:7], gout[:, 0:5]), nbytes(rows),
+                                 k2_slots(counts), SLOTS_PER_S)
+        subs = rc.subtiles_per_tile(ti.tile_x, ti.tile_h)
+        k2[ts, tx] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, err=err,
+                          subs=subs)
+    # (e) the times beside their bounds and the 16-px times.
+    for ts, tx in TILE_SHAPES:
+        a, c = k1[ts, tx], k2[ts, tx]
+        print(f"  (e) {ts}x{tx or ts} tiles ({c['subs']} sub-tile blocks a tile): K1 "
+              f"{a['ms']:.4f} ms (16x64: {ms16['k1']:.4f}), bound {a['bound_ms']:.4f} ms by "
+              f"{a['bound_by']} ({a['bound_ms'] / a['ms']:.1%}), plain {a['plain_ms']:.1f} ms; "
+              f"K2 {c['ms']:.4f} ms (16x64: {ms16['k2']:.4f}), bound {c['bound_ms']:.4f} ms "
+              f"by {c['bound_by']} ({c['bound_ms'] / c['ms']:.1%}), plain {c['plain_ms']:.1f} "
+              f"ms, max|K2-plain| {c['err']:.3e}", flush=True)
+    print(f"  phase 16: launches {total}; {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2854,11 +3089,16 @@ def main() -> int:
 
     # -- 15. the headline bench -------------------------------------------------------------
     bench_launches = bench_phase(torch, rc)
+
+    # -- 16. tile heights other than 16 px ------------------------------------------------------
+    tile_launches = tile_heights_phase(torch, rc, tt, Config, state, deg, bg, cams[0],
+                                       (rgb0, ex0["alpha"]), views, gts,
+                                       {"k1": k1_ms, "k2": k2_ms})
     by_phase = {name: {"6": train_launches[name] if name != "segsum" else
                        mxu_launches["segsum"], "10": mesh_launches[name],
                        "11": shard_launches[name], "12": diffusion_launches[name],
                        "13": quality_launches[name], "14": tools_launches[name],
-                       "15": bench_launches[name]}
+                       "15": bench_launches[name], "16": tile_launches[name]}
                 for name in mesh_launches}
 
     record = {"kernels": [{

@@ -144,18 +144,21 @@ def test_composite_bwd_plain_matches_pallas_rows():
     assert ratio.max() <= 1e-4, ratio.max(axis=0)
 
 
-def _brute_counts(ti, out, tile_x):
+def _brute_counts(ti, out, tile_x, tile_h=16):
     """composite_counts' pair and warp counts, one tile, entry and pixel at
     a time in numpy float32, from K1's output rows, the same alpha
     arithmetic and each row's box (entry_extent); warps as K1 and K2 run
-    them: 8 x 4 patches of 16 x 16 sub-tiles."""
+    them: 8 x 4 patches of 16 x 16 sub-tiles, those past a ragged tile's
+    edge left out."""
     table, ranks = ti.table.numpy(), ti.entry_rank.numpy()
     extent = rc.entry_extent(ti.table).numpy()
     starts, counts = ti.tile_starts.numpy(), ti.counts.numpy()
-    sentinel, p = table.shape[0] - 1, 16 * tile_x
+    sentinel, p = table.shape[0] - 1, tile_h * tile_x
     pix = np.arange(p)
     lx, ly = pix % tile_x, pix // tile_x
-    wid = (ly // 4) * (tile_x // 8) + lx // 8
+    wid = (ly // 4) * -(-tile_x // 8) + lx // 8
+    sub = (ly // 16) * -(-tile_x // 16) + lx // 16
+    subs = [(sub == s, len(np.unique(wid[sub == s]))) for s in range(sub.max() + 1)]
     got = dict.fromkeys(["k1", "k1_box", "k2_pixel", "k2_box", "k2_sub", "kept", "walked",
                          "kept warps", "kept outside the box"], 0)
     out = out.numpy()
@@ -163,11 +166,11 @@ def _brute_counts(ti, out, tile_x):
         n_contrib, cnt = out[t, 5].astype(int), int(counts[t])
         k1 = np.minimum(n_contrib + 1, cnt)
         own = np.minimum(out[t, 6].astype(int), cnt)
-        sub_live = [int(own[lx // 16 == s].max()) for s in range(tile_x // 16)]
+        sub_live = [int(own[in_sub].max()) for in_sub, _ in subs]
         got["k1"] += int(k1.sum())
         got["k2_pixel"] += int(own.sum())
-        got["k2_sub"] += sum(sub_live) * 256
-        got["walked"] += sum(sub_live) * 8
+        got["k2_sub"] += sum(n * int(in_sub.sum()) for n, (in_sub, _) in zip(sub_live, subs))
+        got["walked"] += sum(n * warps for n, (_, warps) in zip(sub_live, subs))
         px = (ti.sx[t].item() + lx).astype(np.float32)
         py = (ti.sy[t].item() + ly).astype(np.float32)
         for e in range(int(k1.max())):

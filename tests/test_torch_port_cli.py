@@ -148,3 +148,17 @@ def test_mcmc_density_run_through_the_cli(tmp_path):
     assert [h["step"] for h in tr.densify_history] == [10]
     assert tr.densify_history[0]["grown"] > 0 and tr.state.capacity == 512
     assert np.isfinite(float(tr.last_metrics["loss_density"]))
+
+
+@pytest.mark.parametrize("tile_size", [8, 12])
+def test_synthetic_run_at_other_tile_heights(tile_size):
+    """``--tile-size N --tile-x 0`` trains on square N x N tiles (the
+    synthetic views are 128 px, a multiple of 8 but not of 12), through K1's
+    and K2's plain versions on the CPU. (The default budgets may drop
+    entries of deep tiles in the first epoch, as the JAX trainer's do,
+    until the retune grows them.)"""
+    tr = train_cli.main(["--train", "--no-viewer", "--synthetic", "--device", "cpu",
+                         "--max-iter", "2", "--tile-size", str(tile_size), "--tile-x", "0"])
+    assert tr.step == 2 and (tr.cfg.tile_size, tr.cfg.tile_x) == (tile_size, 0)
+    m = tr.last_metrics
+    assert np.isfinite(float(m["loss"])) and int(m["n_intersections"]) > 0

@@ -38,9 +38,10 @@ def _splats(rng, n, lo, hi, cov=None, opacity=(0.05, 1.0), depth=(0.5, 5.0)):
             rng.uniform(*opacity, size=n))
 
 
-def _inputs(parts, height, width, tile_x, seed, **caps):
-    """Compositing inputs on the card for the splat sets ``parts``, K1's
-    output and a numpy-drawn cotangent of its rows 0-4."""
+def _inputs(parts, height, width, tile_x, seed, tile_h=16, **caps):
+    """Compositing inputs on the card for the splat sets ``parts`` at
+    tile_h x tile_x tiles, K1's output and a numpy-drawn cotangent of its
+    rows 0-4."""
     _need_card()
     xys, depths, cov, colors, opac = (np.concatenate(x) for x in zip(*parts))
     inv = np.linalg.inv(cov)
@@ -54,41 +55,48 @@ def _inputs(parts, height, width, tile_x, seed, **caps):
         cuda(xys), cuda(depths), cuda(radii, torch.int32),
         cuda(np.stack([inv[:, 0, 0], inv[:, 0, 1], inv[:, 1, 1]], axis=1)), cuda(colors),
         cuda(opac), cuda(rng.uniform(size=len(opac)) > 0.05, torch.bool), height, width,
-        tile_x=tile_x, **caps)
+        tile_x=tile_x, tile_h=tile_h, **caps)
     args = (ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy)
-    out = rc.composite_fwd(*args, tile_x)
+    out = rc.composite_fwd(*args, tile_x, tile_h)
     gout = torch.zeros_like(out)
     gout[:, 0:5] = cuda(rng.normal(size=tuple(out[:, 0:5].shape)))
     return ti, args, out, gout
 
 
-def _case(n, height, width, tile_x, seed):
+def _case(n, height, width, tile_x, seed, tile_h=16):
     """n random splats over a height x width image."""
     rng = np.random.default_rng(seed)
     return _inputs([_splats(rng, n, (-6, -6), (width + 6, height + 6))], height, width,
-                   tile_x, seed)
+                   tile_x, seed, tile_h)
 
 
-def _deep_case(tile_x):
-    """One 16 x tile_x tile under 1,500 faint wide splats (deeper than two
-    K1 batches of 256 entries), and 160 opaque ones in front of its first
-    sub-tile only: the first sub-tile's live prefix ends early, the others'
-    run deep."""
-    rng = np.random.default_rng(tile_x)
-    faint = _splats(rng, 1500, (0, 0), (tile_x, 16), cov=[[400, 0], [0, 400]],
+def _deep_case(tile_x, tile_h=16):
+    """One tile_h x tile_x tile under 1,500 faint wide splats (deeper than
+    two K1 batches of 256 entries), and 160 opaque ones in front of its
+    first sub-tile only: the first sub-tile's live prefix ends early, the
+    others' run deep."""
+    rng = np.random.default_rng(tile_x + tile_h)
+    faint = _splats(rng, 1500, (0, 0), (tile_x, tile_h), cov=[[400, 0], [0, 400]],
                     opacity=(0.004, 0.008), depth=(1.0, 5.0))
     front = _splats(rng, 160, (0, 0), (16, 16), cov=[[16, 0], [0, 16]], opacity=(0.95, 1.0),
                     depth=(0.1, 0.5))
-    return _inputs([faint, front], 16, tile_x, tile_x, tile_x + 1, max_per_tile=4096)
+    return _inputs([faint, front], tile_h, tile_x, tile_x, tile_x + 1, tile_h,
+                   max_per_tile=4096)
 
 
-# name -> inputs: mixed scenes at every tile width (the image 100 px tall,
-# not a multiple of 16), and the deep tile whose sub-tiles end apart.
+# name -> inputs: mixed scenes at every tile width and at tile heights other
+# than 16 (the image 100 x 160, a multiple of none of 8, 12, 16 and 32: the
+# last tiles, and at 12 and 32 px the last sub-tiles, are ragged), and the
+# deep tiles whose sub-tiles end apart.
 CASES = {
     **{f"mixed tile_x={x}": (lambda x=x: _case(700, 100, 160, x, seed=x)) for x in (16, 32, 48, 64)},
+    **{f"mixed {h}x{x}": (lambda h=h, x=x: _case(700, 100, 160, x, seed=h + x, tile_h=h))
+       for h, x in ((8, 8), (12, 12), (32, 32), (32, 64), (8, 64))},
     "deep tile_x=64": lambda: _deep_case(64),
     "deep tile_x=48": lambda: _deep_case(48),
+    "deep 32x32": lambda: _deep_case(32, 32),
 }
+DEEP = ("deep tile_x=64", "deep tile_x=48", "deep 32x32")
 
 
 @pytest.mark.cuda
@@ -96,9 +104,9 @@ CASES = {
 def test_k1_bit_equal_to_plain(name):
     ti, args, out, _ = CASES[name]()
     before = rc.composite_fwd.launches
-    got = rc.composite_fwd(*args, ti.tile_x)
+    got = rc.composite_fwd(*args, ti.tile_x, ti.tile_h)
     assert rc.composite_fwd.launches == before + 1
-    ref = rc.composite_fwd_plain(*args, ti.tile_x)
+    ref = rc.composite_fwd_plain(*args, ti.tile_x, ti.tile_h)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert torch.equal(got, out)  # and launch after launch
@@ -106,10 +114,10 @@ def test_k1_bit_equal_to_plain(name):
 
 @pytest.mark.cuda
 def test_deep_cases_are_deep_and_uneven():
-    for name in ("deep tile_x=64", "deep tile_x=48"):
+    for name in DEEP:
         ti, _, out, _ = CASES[name]()
         assert int(ti.counts.max()) > 2 * rc.SUB_THREADS, name
-        live = rc.subtile_live(out, ti.counts, ti.tile_x)[0]
+        live = rc.subtile_live(out, ti.counts, ti.tile_x, ti.tile_h)[0]
         assert int(live[0]) * 4 < int(live[1:].min()), (name, live.tolist())
 
 
@@ -118,10 +126,10 @@ def test_deep_cases_are_deep_and_uneven():
 def test_k2_matches_plain(name):
     ti, args, out, gout = CASES[name]()
     before = rc.composite_bwd.launches
-    got = rc.composite_bwd(*args, out, gout, ti.tile_x)
+    got = rc.composite_bwd(*args, out, gout, ti.tile_x, ti.tile_h)
     assert rc.composite_bwd.launches == before + 1
-    again = rc.composite_bwd(*args, out, gout, ti.tile_x)
-    ref = rc.composite_bwd_plain(*args, out, gout, ti.tile_x)
+    again = rc.composite_bwd(*args, out, gout, ti.tile_x, ti.tile_h)
+    ref = rc.composite_bwd_plain(*args, out, gout, ti.tile_x, ti.tile_h)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))

@@ -126,9 +126,13 @@ def test_plain_spans_tile_blocks(monkeypatch):
 
 
 def test_argument_checks():
-    args = _torch_args(random_case(n=20, H=16, W=16, seed=1))
-    with pytest.raises(NotImplementedError):
-        rc.rasterize_cuda(*args, tile_size=8)
+    case = random_case(n=20, H=16, W=16, seed=1)
+    args = _torch_args(case)
+    # 8-px tiles (square: tile_x 0) render the dense oracle's image.
+    img_d, alpha_d = dense_reference(case)
+    img, alpha = rc.rasterize_cuda(*args, tile_size=8)
+    np.testing.assert_allclose(img.numpy(), np.asarray(img_d), atol=2e-4)
+    np.testing.assert_allclose(alpha.numpy(), np.asarray(alpha_d), atol=2e-4)
     with pytest.raises(ValueError, match="row_offset"):  # a band outside the stride
         rc.rasterize_cuda(*args, row_stride=2, row_offset=2)
     with pytest.raises(ValueError):

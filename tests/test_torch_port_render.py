@@ -128,8 +128,11 @@ def test_xys_probe_and_backend_names():
             tt.render(ts.params, ts.alive, cam, H, W, 3, bg, rasterizer=name)
     with pytest.raises(NotImplementedError):  # the dense oracle has no bands
         tt.render(ts.params, ts.alive, cam, H, W, 3, bg, rasterizer="dense", row_stride=2)
-    with pytest.raises(NotImplementedError):
-        tt.render(ts.params, ts.alive, cam, H, W, 3, bg, tile_size=8)
+    # 8-px tiles (square: tile_x 0) render the JAX 'tiled' frame at the same
+    # tile size. Not the dense oracle's: render's splats keep their 3-sigma
+    # radii, and the tiles a radius box touches decide which pixels past it
+    # (alpha still >= 1/255 out to 3.33 sigma) a splat reaches, at 16 px too.
+    _assert_frames_close(*_render_both("tiled", "auto", cam_index=0, tile_size=8))
 
 
 def test_init_from_pcd_matches_jax():

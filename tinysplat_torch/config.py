@@ -134,10 +134,10 @@ class Config:
     span_capacity: int = 0  # binning row-span budget (0 = auto)
     grad_reduce: str = "scatter"  # entry-grad reduction of the training path
     tiles_per_block: int = 8  # JAX package only: tiles per Pallas grid step
-    # Tile WIDTH in px (height fixed 16; 0 = tile_size); wider tiles mean
-    # fewer intersections. The CUDA kernel takes 16 to 64.
+    # Tile WIDTH in px (0 = tile_size: square tiles; else a multiple of 16;
+    # the height is tile_size); wider tiles mean fewer intersections.
     tile_x: int = 64
-    # Multi-chip: round-robin 16px tile ROWS over the mesh 'tile' axis
+    # Multi-chip: round-robin tile ROWS over the mesh 'tile' axis
     # instead of contiguous bands (parallel.make_sharded_train_step).
     band_interleave: bool = True
     # Mip-Splatting opacity compensation (beyond-reference; the legacy

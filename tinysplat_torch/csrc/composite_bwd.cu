@@ -3,7 +3,7 @@
 // Replaces tinysplat_tpu/ops/rasterize_pallas.py:_bwd_kernel with
 // _bwd_window (the Pallas TPU backward compositing kernel). What it computes,
 // per tile t and per entry e of the tile's live prefix, summed over the
-// tile's 16 x tile_x pixels:
+// tile's tile_h x tile_x pixels:
 //
 //   grads[tile_starts[t] + e] = [dx, dy, d conic a, b, c, d opacity, d c0..c3]
 //
@@ -36,8 +36,9 @@
 //   tile. A block walks its own live prefix (the wrapper's sub_live: the max
 //   last_contrib of its pixels, exact since no pixel keeps an entry at or
 //   past its last_contrib), shorter than the tile's, and a deep tile spreads
-//   over tile_x / 16 SMs. Blocks take the sub-tiles deepest first (the
-//   wrapper's order), so the shallow ones fill the tail.
+//   over its ceil(tile_h / 16) x ceil(tile_x / 16) sub-tiles' SMs. Blocks
+//   take the sub-tiles deepest first (the wrapper's order), so the shallow
+//   ones fill the tail.
 // - A warp covers an 8 x 4 patch. Each staged entry carries a box outside
 //   which alpha < 1/255 (composite_common.cuh: entry_extent); a warp ballots
 //   which entries' boxes meet its patch and walks only those, back to front,
@@ -54,8 +55,17 @@
 //   summed over the 8 warps in a fixed order, one thread per (entry, column).
 // - With several sub-tiles per tile, each block writes its partial rows
 //   into scratch[sub] and the tile's last block to finish (a per-tile
-//   counter) folds them in sub-tile order. No float atomics: two launches on
-//   the same inputs give the same bytes.
+//   counter) folds them in sub-tile order (row by row). No float atomics:
+//   two launches on the same inputs give the same bytes.
+// - Other tile heights than 16 (the JAX package's tile_size): a tile that is
+//   not a multiple of 16 x 16 has a ragged last row or column of sub-tiles.
+//   A thread whose pixel lies past the tile's edge keeps nothing (its walk
+//   is empty) and adds zeros to its warp's sums; a warp whose whole patch
+//   lies past it walks nothing. The bound is the same issue slots, over the
+//   pixels in the tile; the cost is idle threads (an 8 x 8 tile fills a
+//   quarter of its block) and, for tiles above 16 x 16, the scratch and the
+//   fold over more sub-tiles (a 32 x 64 tile has 8). Packing several small
+//   tiles into a block is not done.
 // The alpha comes from composite_common.cuh (K1's code, no fused
 // multiply-adds), so the keep and clamp masks are K1's bit for bit; T, S, w
 // and q are rounded op by op as in the plain version; only the gradient
@@ -128,7 +138,8 @@ composite_bwd_kernel(const float* __restrict__ table, int sentinel,
                      const int* __restrict__ entry_rank, long long n_entries,
                      const int* __restrict__ tile_starts,
                      const int* __restrict__ sx, const int* __restrict__ sy,
-                     int tile_x, int n_sub, const float* __restrict__ fwd_out,
+                     int tile_h, int tile_x, int n_sub, int n_sub_x,
+                     const float* __restrict__ fwd_out,
                      const float* __restrict__ gout, const int* __restrict__ sub_live,
                      const int* __restrict__ order, float* scratch, int* tile_done,
                      float* grads) {
@@ -141,16 +152,18 @@ composite_bwd_kernel(const float* __restrict__ table, int sentinel,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const SubTilePixel me = sub_tile_pixel(order, n_sub, sx, sy, tile_x);
+  const SubTilePixel me = sub_tile_pixel(order, n_sub, n_sub_x, sx, sy, tile_h, tile_x);
   const long long start = tile_starts[me.t];
   const int live = sub_live[me.item];
   const int my_col = (lane & 1) ? -1 : reduce_col(lane);
 
-  const size_t p = static_cast<size_t>(kTileH) * tile_x;
+  const size_t p = static_cast<size_t>(tile_h) * tile_x;
   const float* fo = fwd_out + static_cast<size_t>(me.t) * kOutRows * p + me.pix;
   const float* go = gout + static_cast<size_t>(me.t) * kOutRows * p + me.pix;
   float T = fo[4 * p];
-  const int n_contrib = static_cast<int>(fo[5 * p]);
+  // A pixel past the tile's edge (me.pix 0: its reads are the tile's first
+  // pixel's) walks nothing.
+  const int n_contrib = me.inside ? static_cast<int>(fo[5 * p]) : 0;
   const float g0 = go[0 * p], g1 = go[1 * p], g2 = go[2 * p], g3 = go[3 * p];
   float S = mul_rn(go[4 * p], T);
   // One sub-tile writes the final rows; several write partial rows for the fold.
@@ -172,8 +185,8 @@ composite_bwd_kernel(const float* __restrict__ table, int sentinel,
 #pragma unroll 1
     for (int h = kWords - 1; h >= 0; --h) {
       const int e = 32 * h + lane;
-      unsigned todo =
-          __ballot_sync(kFull, e < nb && !misses_patch(rows[3 * e], me.wx0, me.wy0));
+      unsigned todo = __ballot_sync(
+          kFull, me.warp_inside && e < nb && !misses_patch(rows[3 * e], me.wx0, me.wy0));
       unsigned hit = 0u;
       while (todo != 0u) {
         const int bit = 31 - __clz(todo);
@@ -270,10 +283,11 @@ composite_bwd_kernel(const float* __restrict__ table, int sentinel,
 
 // table (n_rows, 10) f32 with the zero sentinel as its last row;
 // entry_rank (n_entries,) int32; tile_starts, sx, sy (num_tiles,) int32;
-// fwd_out and gout (num_tiles, 8, 16 * tile_x) f32: K1's output and its
-// cotangent; sub_x: the sub-tile width the caller sized sub_live, order and
-// scratch for (kSubX, else cudaErrorInvalidValue); with n_sub = tile_x /
-// sub_x sub-tiles per tile: sub_live
+// tiles of tile_h x tile_x pixels (both > 0); fwd_out and gout (num_tiles,
+// 8, tile_h * tile_x) f32: K1's output and its cotangent; sub_x: the
+// sub-tile width the caller sized sub_live, order and scratch for (kSubX,
+// else cudaErrorInvalidValue); with n_sub = ceil(tile_h / 16) *
+// ceil(tile_x / sub_x) sub-tiles per tile, row by row: sub_live
 // (num_tiles * n_sub,) int32 each sub-tile's live prefix; order (same size)
 // the work items, deepest first; scratch (n_sub, n_entries, 10) f32 (unused
 // when n_sub is 1); tile_done (num_tiles,) int32 zeroed; grads (n_entries,
@@ -281,16 +295,19 @@ composite_bwd_kernel(const float* __restrict__ table, int sentinel,
 // Returns cudaGetLastError().
 extern "C" int composite_bwd(const float* table, int n_rows, const int* entry_rank,
                              long long n_entries, const int* tile_starts, const int* sx,
-                             const int* sy, int num_tiles, int tile_x, const float* fwd_out,
-                             const float* gout, int sub_x, const int* sub_live,
-                             const int* order, float* scratch, int* tile_done, float* grads,
-                             void* stream) {
-  if (sub_x != tinysplat::kSubX) return static_cast<int>(cudaErrorInvalidValue);
+                             const int* sy, int num_tiles, int tile_h, int tile_x,
+                             const float* fwd_out, const float* gout, int sub_x,
+                             const int* sub_live, const int* order, float* scratch,
+                             int* tile_done, float* grads, void* stream) {
+  if (sub_x != tinysplat::kSubX || tile_h <= 0 || tile_x <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (num_tiles == 0) return static_cast<int>(cudaSuccess);
-  const int n_sub = tile_x / tinysplat::kSubX;
+  int n_sub_x, n_sub;
+  tinysplat::sub_tile_grid(tile_h, tile_x, &n_sub_x, &n_sub);
   composite_bwd_kernel<<<num_tiles * n_sub, tinysplat::kSubThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      table, n_rows - 1, entry_rank, n_entries, tile_starts, sx, sy, tile_x, n_sub, fwd_out,
-      gout, sub_live, order, scratch, tile_done, grads);
+      table, n_rows - 1, entry_rank, n_entries, tile_starts, sx, sy, tile_h, tile_x, n_sub,
+      n_sub_x, fwd_out, gout, sub_live, order, scratch, tile_done, grads);
   return static_cast<int>(cudaGetLastError());
 }

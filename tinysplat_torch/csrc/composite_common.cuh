@@ -13,17 +13,21 @@
 
 namespace tinysplat {
 
-constexpr int kTileH = 16;
+constexpr int kTileH = 16;  // the SUB-tile height (a tile may be of any height)
 constexpr int kCols = 10;  // table row: x, y, conic a, b, c, opacity, c0..c3
 constexpr int kOutRows = 8;  // K1 output rows: c0..c3, T_final, n_contrib, last_contrib, 0
 constexpr float kAlphaEps = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.999f;
 constexpr float kTEps = 1e-4f;
 
-// A block covers a 16 x kSubX sub-tile of a 16 x tile_x tile, one thread per
-// pixel; a warp covers a kWarpW x kWarpH patch of it. The wrappers size the
-// work order and K2's scratch by rasterize_cuda.SUB_X and pass it to the
-// entry points, which refuse a launch unless it is kSubX.
+// A block covers a kTileH x kSubX sub-tile of a tile_h x tile_x tile, one
+// thread per pixel; a warp covers a kWarpW x kWarpH patch of it. A tile is
+// ceil(tile_h / kTileH) x ceil(tile_x / kSubX) sub-tiles, row by row; where
+// it is not a multiple of the sub-tile, the last row and column of them are
+// ragged, and a thread whose pixel lies past the tile's edge composites
+// nothing, keeps nothing and writes nothing. The wrappers size the work
+// order and K2's scratch by rasterize_cuda.SUB_X (and SUB_H = kTileH) and
+// pass SUB_X to the entry points, which refuse a launch unless it is kSubX.
 constexpr int kSubX = 16;
 constexpr int kSubThreads = kTileH * kSubX;
 constexpr int kWarpW = 8;
@@ -68,27 +72,39 @@ __device__ __forceinline__ int table_row(const int* entry_rank, long long n_entr
 }
 
 // This thread's pixel in the sub-tile block of work item order[blockIdx.x]
-// (item = tile * n_sub + sub). `pix` indexes the tile's pixels row-major, as
-// the (num_tiles, 8, 16 * tile_x) output rows do; (wx0, wy0) is the first
-// pixel of the thread's warp patch.
+// (item = tile * n_sub + sub, sub = sub-tile row * n_sub_x + column). `pix`
+// indexes the tile's pixels row-major, as the (num_tiles, 8, tile_h * tile_x)
+// output rows do (0 for a pixel past the tile's edge, so that an address
+// built from it stays inside the tile's rows); (wx0, wy0) is the first pixel
+// of the thread's warp patch. `inside`: the pixel lies in the tile;
+// `warp_inside`: some pixel of the warp's patch does (the same in all lanes).
 struct SubTilePixel {
   int t, item, pix;
   float px, py, wx0, wy0;
+  bool inside, warp_inside;
 };
 
 __device__ __forceinline__ SubTilePixel sub_tile_pixel(const int* order, int n_sub,
-                                                      const int* sx, const int* sy,
+                                                      int n_sub_x, const int* sx,
+                                                      const int* sy, int tile_h,
                                                       int tile_x) {
   const int item = order[blockIdx.x];
   const int t = item / n_sub, s = item % n_sub;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   constexpr int kWarpsX = kSubX / kWarpW;
-  const int wx = s * kSubX + (warp % kWarpsX) * kWarpW;
-  const int wy = (warp / kWarpsX) * kWarpH;
+  const int wx = (s % n_sub_x) * kSubX + (warp % kWarpsX) * kWarpW;
+  const int wy = (s / n_sub_x) * kTileH + (warp / kWarpsX) * kWarpH;
   const int lx = wx + lane % kWarpW, ly = wy + lane / kWarpW;
-  return {t, item, ly * tile_x + lx, static_cast<float>(sx[t] + lx),
+  const bool inside = lx < tile_x && ly < tile_h;
+  return {t, item, inside ? ly * tile_x + lx : 0, static_cast<float>(sx[t] + lx),
           static_cast<float>(sy[t] + ly), static_cast<float>(sx[t] + wx),
-          static_cast<float>(sy[t] + wy)};
+          static_cast<float>(sy[t] + wy), inside, wx < tile_x && wy < tile_h};
+}
+
+// The sub-tile grid of a tile_h x tile_x tile: n_sub_x columns, n_sub in all.
+inline void sub_tile_grid(int tile_h, int tile_x, int* n_sub_x, int* n_sub) {
+  *n_sub_x = (tile_x + kSubX - 1) / kSubX;
+  *n_sub = ((tile_h + kTileH - 1) / kTileH) * *n_sub_x;
 }
 
 // Half-widths (ex, ey) of a box around an entry's centre outside which no

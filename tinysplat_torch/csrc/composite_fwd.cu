@@ -1,8 +1,8 @@
 // K1: front-to-back alpha compositing of depth-sorted tile entries.
 //
 // Replaces tinysplat_tpu/ops/rasterize_pallas.py:_fwd_kernel (the Pallas TPU
-// forward compositing kernel). What it computes, per tile t of 16 x tile_x
-// pixels and per pixel (px, py) = (sx[t] + lx, sy[t] + ly):
+// forward compositing kernel). What it computes, per tile t of tile_h x
+// tile_x pixels and per pixel (px, py) = (sx[t] + lx, sy[t] + ly):
 //
 //   for the entries e < counts[t] of the tile's depth-sorted range
 //   [tile_starts[t], tile_starts[t] + counts[t]) of entry_rank, front to back:
@@ -31,10 +31,20 @@
 //
 // What the design does about it:
 // - One block per 16 x 16 sub-tile (256 threads, one per pixel, warps on 8 x
-//   4 patches), so a deep tile spreads over tile_x / 16 SMs, a warp's pixels
-//   saturate together, and the early exit (__syncthreads_count) votes per
-//   sub-tile. Blocks take the sub-tiles in the order the wrapper passes,
-//   deepest tile first, so the shallow ones fill the tail.
+//   4 patches), so a deep tile spreads over its ceil(tile_h / 16) x
+//   ceil(tile_x / 16) sub-tiles' SMs, a warp's pixels saturate together, and
+//   the early exit (__syncthreads_count) votes per sub-tile. Blocks take the
+//   sub-tiles in the order the wrapper passes, deepest tile first, so the
+//   shallow ones fill the tail.
+// - Other tile heights than 16 (the JAX package's tile_size): a tile that is
+//   not a multiple of 16 x 16 has a ragged last row or column of sub-tiles,
+//   whose threads past the tile's edge start done (so they vote for the early
+//   exit and their warps skip the walk) and write nothing. Every pixel in
+//   the tile walks the same entries in the same order as at 16 px, so the
+//   output stays bit-equal to the plain version. The cost is idle threads:
+//   an 8 x 8 tile fills a quarter of its block and a 12 x 12 one 56%; a
+//   block still stages every entry of its tile. Packing several small tiles
+//   into a block is not done.
 // - The block stages a batch of 256 entry rows in shared memory, 12 floats a
 //   row: the row and a box around the splat outside which alpha < 1/255
 //   (composite_common.cuh: entry_extent). A warp ballots which entries' boxes
@@ -56,13 +66,13 @@ composite_fwd_kernel(const float* __restrict__ table, int sentinel,
                      const int* __restrict__ tile_starts,
                      const int* __restrict__ counts,
                      const int* __restrict__ sx, const int* __restrict__ sy,
-                     int tile_x, int n_sub, const int* __restrict__ order,
-                     float* __restrict__ out) {
+                     int tile_h, int tile_x, int n_sub, int n_sub_x,
+                     const int* __restrict__ order, float* __restrict__ out) {
   __shared__ __align__(16) float batch[kSubThreads * kRowStride];
   const float4* rows = reinterpret_cast<const float4*>(batch);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const SubTilePixel me = sub_tile_pixel(order, n_sub, sx, sy, tile_x);
+  const SubTilePixel me = sub_tile_pixel(order, n_sub, n_sub_x, sx, sy, tile_h, tile_x);
   const int start = tile_starts[me.t];
   const int count = counts[me.t];
 
@@ -70,7 +80,7 @@ composite_fwd_kernel(const float* __restrict__ table, int sentinel,
   float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, c3 = 0.0f;
   int n_contrib = 0;
   int last_contrib = 0;
-  int done = 0;
+  int done = me.inside ? 0 : 1;  // a pixel past the tile's edge takes no part
 
   for (int base = 0; base < count; base += kSubThreads) {
     // Barrier + vote: the previous batch is fully read before it is
@@ -117,7 +127,8 @@ composite_fwd_kernel(const float* __restrict__ table, int sentinel,
     if (!done) n_contrib = base + nb;
   }
 
-  const size_t p = static_cast<size_t>(kTileH) * tile_x;
+  if (!me.inside) return;
+  const size_t p = static_cast<size_t>(tile_h) * tile_x;
   float* o = out + static_cast<size_t>(me.t) * kOutRows * p + me.pix;
   o[0 * p] = c0;
   o[1 * p] = c1;
@@ -133,20 +144,26 @@ composite_fwd_kernel(const float* __restrict__ table, int sentinel,
 
 // table (n_rows, 10) f32 with the zero sentinel as its last row;
 // entry_rank (n_entries,) int32; tile_starts, counts, sx, sy (num_tiles,) int32;
-// sub_x: the sub-tile width the caller sized `order` for (kSubX, else
-// cudaErrorInvalidValue); order (num_tiles * tile_x / sub_x,) int32: the
-// sub-tile work items (tile * tile_x / sub_x + sub), in the order blocks take
-// them; out (num_tiles, 8, 16 * tile_x) f32. Returns cudaGetLastError().
+// tiles of tile_h x tile_x pixels (both > 0); sub_x: the sub-tile width the
+// caller sized `order` for (kSubX, else cudaErrorInvalidValue); with n_sub =
+// ceil(tile_h / 16) * ceil(tile_x / sub_x) sub-tiles per tile: order
+// (num_tiles * n_sub,) int32, the sub-tile work items (tile * n_sub + sub), in
+// the order blocks take them; out (num_tiles, 8, tile_h * tile_x) f32.
+// Returns cudaGetLastError().
 extern "C" int composite_fwd(const float* table, int n_rows, const int* entry_rank,
                              long long n_entries, const int* tile_starts, const int* counts,
-                             const int* sx, const int* sy, int num_tiles, int tile_x,
-                             int sub_x, const int* order, float* out, void* stream) {
-  if (sub_x != tinysplat::kSubX) return static_cast<int>(cudaErrorInvalidValue);
+                             const int* sx, const int* sy, int num_tiles, int tile_h,
+                             int tile_x, int sub_x, const int* order, float* out,
+                             void* stream) {
+  if (sub_x != tinysplat::kSubX || tile_h <= 0 || tile_x <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (num_tiles == 0) return static_cast<int>(cudaSuccess);
-  const int n_sub = tile_x / tinysplat::kSubX;
+  int n_sub_x, n_sub;
+  tinysplat::sub_tile_grid(tile_h, tile_x, &n_sub_x, &n_sub);
   composite_fwd_kernel<<<num_tiles * n_sub, tinysplat::kSubThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      table, n_rows - 1, entry_rank, n_entries, tile_starts, counts, sx, sy, tile_x, n_sub,
-      order, out);
+      table, n_rows - 1, entry_rank, n_entries, tile_starts, counts, sx, sy, tile_h, tile_x,
+      n_sub, n_sub_x, order, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,12 +7,14 @@ has ``rasterize_pallas``'s signature, outputs, diagnostics and gradients:
    entries out contiguously (entry ids are depth RANKS); the per-splat
    attribute table is permuted by the depth order, so entry ranks index it
    directly, and a zero SENTINEL row follows it (opacity 0 => no
-   contribution). Per-tile pixel origins ``sx``/``sy``: with a strided band
-   (``row_stride`` S, ``row_offset`` o) local tile row g starts at global
-   pixel row (o + g S) * 16, so the kernels composite global coordinates.
+   contribution). A tile is ``tile_h`` rows by ``tile_x`` columns (the JAX
+   package's ``tile_size`` and ``tile_x``). Per-tile pixel origins
+   ``sx``/``sy``: with a strided band (``row_stride`` S, ``row_offset`` o)
+   local tile row g starts at global pixel row (o + g S) * tile_h, so the
+   kernels composite global coordinates.
 2. ``composite_fwd``: K1 (``csrc/composite_fwd.cu``) on CUDA tensors, its
    plain PyTorch version ``composite_fwd_plain`` on CPU tensors. Output:
-   (num_tiles, 8, 16 * tile_x) f32 rows [c0..c3, T_final, n_contrib,
+   (num_tiles, 8, tile_h * tile_x) f32 rows [c0..c3, T_final, n_contrib,
    last_contrib, 0], the JAX kernel's OUT_ROWS layout.
 3. ``untile``: background blend by T_final, tiles -> (H, W) image (a
    band's rows stay in band order).
@@ -46,15 +48,17 @@ from . import _build
 from .binning import DenseBins, bin_splats_dense
 from .rasterize_dense import ALPHA_EPS, ALPHA_MAX, T_EPS
 
-TILE = 16  # tile height in pixels
 OUT_ROWS = 8  # [c0..c3, T_final, n_contrib, last_contrib, 0]
 TABLE_COLS = 10  # [x, y, conic a, b, c, opacity, c0..c3]
-# K1 and K2 run one block per 16 x SUB_X sub-tile of a tile, one thread per
+# K1 and K2 run one block per SUB_H x SUB_X sub-tile of a tile, one thread per
 # pixel; a warp's 32 pixels are an 8 x 4 patch (WARP_FOOTPRINT, width x height).
-# The wrappers pass SUB_X to the kernels, which refuse a launch unless it is
-# the width they were built with (csrc/composite_common.cuh: kSubX).
-SUB_X = 16
-SUB_THREADS = TILE * SUB_X
+# A tile_h x tile_x tile is ceil(tile_h / SUB_H) x ceil(tile_x / SUB_X)
+# sub-tiles, row by row; in a ragged last one the threads past the tile's
+# edge composite nothing. The wrappers pass SUB_X to the kernels, which
+# refuse a launch unless it is the width they were built with
+# (csrc/composite_common.cuh: kSubX; kTileH is SUB_H).
+SUB_H = SUB_X = 16
+SUB_THREADS = SUB_H * SUB_X
 WARP_FOOTPRINT = (8, 4)
 GRAD_REDUCE = ("scatter", "sorted", "segment", "mxu")
 # The plain version walks blocks of tiles holding about this many pixels at
@@ -74,6 +78,7 @@ class TileInputs(NamedTuple):
     sx: torch.Tensor  # (num_tiles,) int32 tile pixel origin x
     sy: torch.Tensor  # (num_tiles,) int32 tile pixel origin y
     tile_x: int
+    tile_h: int
     tiles_x: int
     tiles_y: int
     bins: DenseBins
@@ -82,17 +87,19 @@ class TileInputs(NamedTuple):
 def tile_inputs(xys, depths, radii, conics, colors, opacities, valid,
                 img_height: int, img_width: int, chunk: int = 128,
                 dup_capacity: int = 0, max_per_tile: int = 0,
-                span_capacity: int = 0, tile_x: int = TILE, row_stride: int = 1,
-                row_offset: int = 0) -> TileInputs:
-    """Bin the splats and build K1's attribute table and tile origins
-    (``img_height`` rows; a strided band of them with ``row_stride``)."""
+                span_capacity: int = 0, tile_x: int = 16, row_stride: int = 1,
+                row_offset: int = 0, tile_h: int = 16) -> TileInputs:
+    """Bin the splats into tile_h x tile_x tiles and build K1's attribute
+    table and tile origins (``img_height`` rows; a strided band of them with
+    ``row_stride``)."""
     n, c = xys.shape[0], colors.shape[-1]
     if c > 4:
         raise ValueError(f"the compositing kernel takes up to 4 channels, got {c}")
+    subtiles_per_tile(tile_x, tile_h)
     tiles_x = (img_width + tile_x - 1) // tile_x
-    tiles_y = (img_height + TILE - 1) // TILE
+    tiles_y = (img_height + tile_h - 1) // tile_h
     bins = bin_splats_dense(
-        xys, depths, radii, valid, tiles_x, tiles_y, TILE, chunk=chunk,
+        xys, depths, radii, valid, tiles_x, tiles_y, tile_h, chunk=chunk,
         dup_capacity=dup_capacity, max_per_tile=max_per_tile,
         span_capacity=span_capacity, conics=conics, opacities=opacities,
         tile_size_x=tile_x, row_stride=row_stride, row_offset=row_offset,
@@ -103,12 +110,13 @@ def tile_inputs(xys, depths, radii, conics, colors, opacities, valid,
                        per_splat.new_zeros((1, TABLE_COLS), dtype=torch.float32)])
     tid = torch.arange(tiles_x * tiles_y, dtype=torch.int32, device=xys.device)
     sx = (tid % tiles_x) * tile_x
-    sy = ((tid // tiles_x) * row_stride + int(row_offset)) * TILE
+    sy = ((tid // tiles_x) * row_stride + int(row_offset)) * tile_h
     return TileInputs(table.contiguous(), bins.entry_rank, bins.tile_starts,
-                      bins.counts, sx, sy, tile_x, tiles_x, tiles_y, bins)
+                      bins.counts, sx, sy, tile_x, tile_h, tiles_x, tiles_y, bins)
 
 
-def _check_composite_args(table, entry_rank, tile_starts, counts, sx, sy, tile_x):
+def _check_composite_args(table, entry_rank, tile_starts, counts, sx, sy, tile_x,
+                          tile_h):
     dev = table.device
     if table.dim() != 2 or table.shape[1] != TABLE_COLS or table.shape[0] < 1:
         raise ValueError(f"table must be (N + 1, {TABLE_COLS}), got {tuple(table.shape)}")
@@ -123,25 +131,47 @@ def _check_composite_args(table, entry_rank, tile_starts, counts, sx, sy, tile_x
             raise ValueError(f"{name} is on {x.device}, table on {dev}")
         if name != "entry_rank" and x.shape[0] != nt:
             raise ValueError(f"{name} has {x.shape[0]} tiles, tile_starts {nt}")
-    subtiles_per_tile(tile_x)
+    subtiles_per_tile(tile_x, tile_h)
 
 
-def subtiles_per_tile(tile_x: int) -> int:
-    """The number of 16 x SUB_X sub-tile blocks K1 and K2 cut a 16 x tile_x
-    tile into; raises unless tile_x is a positive multiple of SUB_X."""
-    if tile_x <= 0 or tile_x % SUB_X:
+def subtile_grid(tile_x: int, tile_h: int = 16) -> tuple:
+    """(rows, columns) of the SUB_H x SUB_X sub-tile blocks K1 and K2 cut a
+    tile_h x tile_x tile into, the last row and column ragged where the tile
+    is not a multiple of the sub-tile. Raises unless the tile height is
+    positive and tile_x a positive multiple of SUB_X or equal to tile_h (a
+    square tile of any size)."""
+    if tile_h <= 0:
+        raise ValueError(f"the tile height must be positive, got {tile_h}")
+    if tile_x <= 0 or (tile_x % SUB_X and tile_x != tile_h):
         raise ValueError(f"tile_x must be a positive multiple of the {SUB_X}-pixel "
-                         f"sub-tile width, got {tile_x}")
-    return tile_x // SUB_X
+                         f"sub-tile width, or the tile height, got {tile_x}")
+    return -(-tile_h // SUB_H), -(-tile_x // SUB_X)
 
 
-def subtile_live(out: torch.Tensor, counts: torch.Tensor, tile_x: int) -> torch.Tensor:
-    """(num_tiles, tile_x // SUB_X) int32: each sub-tile's live prefix in the
+def subtiles_per_tile(tile_x: int, tile_h: int = 16) -> int:
+    """The number of sub-tile blocks of a tile_h x tile_x tile (``subtile_grid``)."""
+    rows, cols = subtile_grid(tile_x, tile_h)
+    return rows * cols
+
+
+def subtile_max(x: torch.Tensor, tile_x: int, tile_h: int = 16) -> torch.Tensor:
+    """(num_tiles, subtiles) the max of (num_tiles, tile_h * tile_x) per-pixel
+    values over each sub-tile's pixels, sub-tiles row by row (``x`` >= 0: the
+    ragged sub-tiles' missing pixels count as 0)."""
+    rows, cols = subtile_grid(tile_x, tile_h)
+    x = x.reshape(-1, tile_h, tile_x)
+    if (rows * SUB_H, cols * SUB_X) != (tile_h, tile_x):
+        x = torch.nn.functional.pad(x, (0, cols * SUB_X - tile_x, 0, rows * SUB_H - tile_h))
+    return x.reshape(-1, rows, SUB_H, cols, SUB_X).amax(dim=(2, 4)).reshape(-1, rows * cols)
+
+
+def subtile_live(out: torch.Tensor, counts: torch.Tensor, tile_x: int,
+                 tile_h: int = 16) -> torch.Tensor:
+    """(num_tiles, subtiles) int32: each sub-tile's live prefix in the
     backward, the max last_contrib of its pixels (at most the tile's count).
     No pixel keeps an entry at or past its last_contrib, so the prefix is
     exact."""
-    nt, ns = out.shape[0], subtiles_per_tile(tile_x)
-    last = out[:, 6].reshape(nt, TILE, ns, SUB_X).amax(dim=(1, 3))
+    last = subtile_max(out[:, 6], tile_x, tile_h)
     return torch.minimum(last.to(torch.int32), counts[:, None])
 
 
@@ -152,25 +182,28 @@ def work_order(depth: torch.Tensor) -> torch.Tensor:
     return torch.argsort(depth.reshape(-1), descending=True, stable=True).to(torch.int32)
 
 
-def composite_fwd(table, entry_rank, tile_starts, counts, sx, sy, tile_x: int) -> torch.Tensor:
-    """Composite every tile's entries front to back: (num_tiles, 8, 16 * tile_x).
+def composite_fwd(table, entry_rank, tile_starts, counts, sx, sy, tile_x: int,
+                  tile_h: int = 16) -> torch.Tensor:
+    """Composite every tile's entries front to back: (num_tiles, 8,
+    tile_h * tile_x).
 
     Launches K1 on CUDA tensors (``composite_fwd.launches`` counts the
     launches) and runs ``composite_fwd_plain`` on CPU tensors.
     """
-    _check_composite_args(table, entry_rank, tile_starts, counts, sx, sy, tile_x)
+    _check_composite_args(table, entry_rank, tile_starts, counts, sx, sy, tile_x, tile_h)
     if table.device.type == "cpu":
-        return composite_fwd_plain(table, entry_rank, tile_starts, counts, sx, sy, tile_x)
+        return composite_fwd_plain(table, entry_rank, tile_starts, counts, sx, sy, tile_x,
+                                   tile_h)
     if table.device.type != "cuda":
         raise ValueError(f"composite_fwd runs on CUDA or CPU tensors, not {table.device}")
     args = [x.contiguous() for x in (table, entry_rank, tile_starts, counts, sx, sy)]
     num_tiles = tile_starts.shape[0]
-    out = torch.empty((num_tiles, OUT_ROWS, TILE * tile_x), dtype=torch.float32,
+    out = torch.empty((num_tiles, OUT_ROWS, tile_h * tile_x), dtype=torch.float32,
                       device=table.device)
-    order = work_order(args[3][:, None].expand(num_tiles, subtiles_per_tile(tile_x)))
+    order = work_order(args[3][:, None].expand(num_tiles, subtiles_per_tile(tile_x, tile_h)))
     _launch("composite_fwd", table.device, args[0].data_ptr(), args[0].shape[0],
             args[1].data_ptr(), args[1].shape[0], args[2].data_ptr(), args[3].data_ptr(),
-            args[4].data_ptr(), args[5].data_ptr(), num_tiles, tile_x, SUB_X,
+            args[4].data_ptr(), args[5].data_ptr(), num_tiles, tile_h, tile_x, SUB_X,
             order.data_ptr(), out.data_ptr())
     composite_fwd.launches += 1
     return out
@@ -182,9 +215,9 @@ composite_fwd.launches = 0
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The C signature of each kernel's entry point; the CUDA stream comes last.
 _SIGNATURES = {
-    "composite_fwd": (_P, _I, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
-    "composite_bwd": (_P, _I, _P, _LL, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P,
-                      _P),
+    "composite_fwd": (_P, _I, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "composite_bwd": (_P, _I, _P, _LL, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P,
+                      _P, _P),
     "segsum": (_P, _I, _P, _P, _I, _P, _P),
 }
 
@@ -194,7 +227,7 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 
 def composite_fwd_plain(table, entry_rank, tile_starts, counts, sx, sy,
-                        tile_x: int) -> torch.Tensor:
+                        tile_x: int, tile_h: int = 16) -> torch.Tensor:
     """K1 in plain PyTorch: the same sequential walk, vectorized over a
     block of tiles x pixels instead of threads.
 
@@ -204,7 +237,7 @@ def composite_fwd_plain(table, entry_rank, tile_starts, counts, sx, sy,
     """
     dev = table.device
     num_tiles = tile_starts.shape[0]
-    p = TILE * tile_x
+    p = tile_h * tile_x
     out = torch.zeros((num_tiles, OUT_ROWS, p), dtype=torch.float32, device=dev)
     if num_tiles == 0:
         return out
@@ -252,9 +285,10 @@ def composite_fwd_plain(table, entry_rank, tile_starts, counts, sx, sy,
     return out
 
 
-def _check_bwd_args(table, entry_rank, tile_starts, counts, sx, sy, out, gout, tile_x):
-    _check_composite_args(table, entry_rank, tile_starts, counts, sx, sy, tile_x)
-    shape = (tile_starts.shape[0], OUT_ROWS, TILE * tile_x)
+def _check_bwd_args(table, entry_rank, tile_starts, counts, sx, sy, out, gout, tile_x,
+                    tile_h):
+    _check_composite_args(table, entry_rank, tile_starts, counts, sx, sy, tile_x, tile_h)
+    shape = (tile_starts.shape[0], OUT_ROWS, tile_h * tile_x)
     for name, x in (("out", out), ("gout", gout)):
         if x.dtype != torch.float32 or tuple(x.shape) != shape:
             raise ValueError(f"{name} must be float32 {shape}, got {x.dtype} {tuple(x.shape)}")
@@ -263,7 +297,7 @@ def _check_bwd_args(table, entry_rank, tile_starts, counts, sx, sy, out, gout, t
 
 
 def composite_bwd(table, entry_rank, tile_starts, counts, sx, sy, out, gout,
-                  tile_x: int) -> torch.Tensor:
+                  tile_x: int, tile_h: int = 16) -> torch.Tensor:
     """Per-entry gradient rows (len(entry_rank), 10) of K1's table columns
     [x, y, conic a, b, c, opacity, c0..c3], given K1's output ``out`` and
     its cotangent ``gout`` (rows 0-4 are read: g_c0..g_c3, g_T_final).
@@ -278,24 +312,25 @@ def composite_bwd(table, entry_rank, tile_starts, counts, sx, sy, out, gout,
     scratch buffer and the tile's last block to finish folds them in sub-tile
     order, so two launches on the same inputs give the same bytes.
     """
-    _check_bwd_args(table, entry_rank, tile_starts, counts, sx, sy, out, gout, tile_x)
+    _check_bwd_args(table, entry_rank, tile_starts, counts, sx, sy, out, gout, tile_x,
+                    tile_h)
     if table.device.type == "cpu":
         return composite_bwd_plain(table, entry_rank, tile_starts, counts, sx, sy, out,
-                                   gout, tile_x)
+                                   gout, tile_x, tile_h)
     if table.device.type != "cuda":
         raise ValueError(f"composite_bwd runs on CUDA or CPU tensors, not {table.device}")
     args = [x.contiguous() for x in (table, entry_rank, tile_starts, counts, sx, sy, out, gout)]
     num_tiles, n_slots = tile_starts.shape[0], entry_rank.shape[0]
-    ns = subtiles_per_tile(tile_x)
+    ns = subtiles_per_tile(tile_x, tile_h)
     grads = torch.zeros((n_slots, TABLE_COLS), dtype=torch.float32, device=table.device)
-    live = subtile_live(args[6], args[3], tile_x).contiguous()
+    live = subtile_live(args[6], args[3], tile_x, tile_h).contiguous()
     order = work_order(live)
     scratch = (torch.empty((ns, n_slots, TABLE_COLS), dtype=torch.float32, device=table.device)
                if ns > 1 else grads)
     tile_done = torch.zeros(num_tiles, dtype=torch.int32, device=table.device)
     _launch("composite_bwd", table.device, args[0].data_ptr(), args[0].shape[0],
             args[1].data_ptr(), n_slots, args[2].data_ptr(), args[4].data_ptr(),
-            args[5].data_ptr(), num_tiles, tile_x, args[6].data_ptr(),
+            args[5].data_ptr(), num_tiles, tile_h, tile_x, args[6].data_ptr(),
             args[7].data_ptr(), SUB_X, live.data_ptr(), order.data_ptr(), scratch.data_ptr(),
             tile_done.data_ptr(), grads.data_ptr())
     composite_bwd.launches += 1
@@ -321,8 +356,9 @@ class _BwdBlock(NamedTuple):
     live: torch.Tensor  # (B,) the tile's live prefix
 
 
-def _bwd_block(out, tile_starts, counts, sx, sy, tile_x: int, t0: int, t1: int) -> _BwdBlock:
-    pix = torch.arange(TILE * tile_x, device=out.device)
+def _bwd_block(out, tile_starts, counts, sx, sy, tile_x: int, tile_h: int, t0: int,
+               t1: int) -> _BwdBlock:
+    pix = torch.arange(tile_h * tile_x, device=out.device)
     return _BwdBlock(
         tile_starts[t0:t1].long(),
         (sx[t0:t1, None] + pix % tile_x).to(torch.float32),
@@ -353,7 +389,7 @@ def _bwd_entry(table, entry_rank, blk: _BwdBlock, k: int):
 
 
 def composite_bwd_plain(table, entry_rank, tile_starts, counts, sx, sy, out, gout,
-                        tile_x: int) -> torch.Tensor:
+                        tile_x: int, tile_h: int = 16) -> torch.Tensor:
     """K2 in plain PyTorch: the same back-to-front walk, vectorized over a
     block of tiles x pixels instead of threads.
 
@@ -365,13 +401,13 @@ def composite_bwd_plain(table, entry_rank, tile_starts, counts, sx, sy, out, gou
     in K2's fused multiply-adds in the gradient terms.
     """
     num_tiles = tile_starts.shape[0]
-    p = TILE * tile_x
+    p = tile_h * tile_x
     n_slots = entry_rank.shape[0]
     grads = torch.zeros((n_slots, TABLE_COLS), dtype=torch.float32, device=table.device)
     if num_tiles == 0 or n_slots == 0:
         return grads
     for t0, t1 in _plain_blocks(num_tiles, p):
-        blk = _bwd_block(out, tile_starts, counts, sx, sy, tile_x, t0, t1)
+        blk = _bwd_block(out, tile_starts, counts, sx, sy, tile_x, tile_h, t0, t1)
         T = out[t0:t1, 4].clone()
         g = gout[t0:t1, 0:4]  # (B, 4, P)
         S = gout[t0:t1, 4] * T
@@ -403,13 +439,22 @@ def composite_bwd_plain(table, entry_rank, tile_starts, counts, sx, sy, out, gou
     return grads
 
 
-def warp_ids(tile_x: int) -> torch.Tensor:
-    """(16 * tile_x,) the warp of each pixel of a tile (row-major pixel
-    index) as K1 and K2 run them: WARP_FOOTPRINT patches, row by row."""
+def warp_ids(tile_x: int, tile_h: int = 16) -> torch.Tensor:
+    """(tile_h * tile_x,) the warp of each pixel of a tile (row-major pixel
+    index) as K1 and K2 run them: WARP_FOOTPRINT patches, row by row (a
+    ragged tile's last patches hold fewer pixels)."""
     fw, fh = WARP_FOOTPRINT
-    pix = torch.arange(TILE * tile_x)
+    pix = torch.arange(tile_h * tile_x)
     lx, ly = pix % tile_x, pix // tile_x
-    return (ly // fh) * (tile_x // fw) + lx // fw
+    return (ly // fh) * -(-tile_x // fw) + lx // fw
+
+
+def subtile_ids(tile_x: int, tile_h: int = 16) -> torch.Tensor:
+    """(tile_h * tile_x,) the sub-tile of each pixel of a tile (row-major
+    pixel index), sub-tiles row by row (``subtile_grid``)."""
+    cols = subtile_grid(tile_x, tile_h)[1]
+    pix = torch.arange(tile_h * tile_x)
+    return (pix // tile_x // SUB_H) * cols + pix % tile_x // SUB_X
 
 
 def entry_extent(table: torch.Tensor) -> torch.Tensor:
@@ -436,7 +481,7 @@ def _stats(x: torch.Tensor) -> dict:
 
 
 def composite_counts(table, entry_rank, tile_starts, counts, sx, sy, out,
-                     tile_x: int) -> dict:
+                     tile_x: int, tile_h: int = 16) -> dict:
     """Work counters of one frame's compositing (plain torch; no kernel
     runs): from K1's output ``out`` and the plain backward walk's keep masks.
 
@@ -444,35 +489,41 @@ def composite_counts(table, entry_rank, tile_starts, counts, sx, sy, out,
                     its stop); ``k2_pixel`` a pixel's own live prefix
                     (min(last_contrib, count): the least any backward walks);
                     ``k2_sub`` the backward walking each sub-tile's live
-                    prefix at every pixel; ``k1_box`` / ``k2_box`` the pairs
+                    prefix at every pixel of the tile in it; ``k1_box`` /
+                    ``k2_box`` the pairs
                     of ``k1`` / ``k2_pixel`` whose pixel lies in the entry's
                     box (``entry_extent``: the only ones the kernels need to
                     evaluate); ``kept`` the pairs the alpha test keeps (K2's
                     expensive ones, all inside the boxes).
     warps:          (entry, warp) pairs of the WARP_FOOTPRINT warps of the
-                    sub-tiles: ``walked`` (a warp walks its sub-tile's live
-                    prefix) and ``kept`` (those with at least one kept pixel).
+                    sub-tiles that hold a pixel of the tile: ``walked`` (a
+                    warp walks its sub-tile's live prefix) and ``kept``
+                    (those with at least one kept pixel).
     tile_entries /  entries walked per tile / per sub-tile: ``k1`` the most
     sub_entries:    any of its pixels evaluates, ``k2`` its live prefix;
                     mean, p99 and max of each.
     """
-    _check_bwd_args(table, entry_rank, tile_starts, counts, sx, sy, out, out, tile_x)
-    nt, ns, p = tile_starts.shape[0], subtiles_per_tile(tile_x), TILE * tile_x
+    _check_bwd_args(table, entry_rank, tile_starts, counts, sx, sy, out, out, tile_x,
+                    tile_h)
+    nt, p = tile_starts.shape[0], tile_h * tile_x
+    ns = subtiles_per_tile(tile_x, tile_h)
     cnt = counts.long()[:, None]
     k1_pixel = torch.minimum(out[:, 5].long() + 1, cnt)
     k2_pixel = torch.minimum(out[:, 6].long(), cnt)
-
-    def per_sub(x):
-        return x.reshape(nt, TILE, ns, SUB_X).amax(dim=(1, 3))
-
-    k2_sub = per_sub(k2_pixel)
-    perm = torch.argsort(warp_ids(tile_x), stable=True).to(out.device)
+    k2_sub = subtile_max(k2_pixel, tile_x, tile_h)
+    wid, sid = warp_ids(tile_x, tile_h), subtile_ids(tile_x, tile_h)
+    n_warps = int(wid.max()) + 1
+    # Per sub-tile: the tile's pixels in it, and the warps that hold one.
+    sub_pixels = torch.bincount(sid, minlength=ns).to(out.device)
+    sub_warps = torch.bincount(torch.zeros(n_warps, dtype=torch.long).scatter_(0, wid, sid),
+                               minlength=ns).to(out.device)
+    wid = wid.to(out.device)
     k1_box = k2_box = kept_pairs = kept_warps = 0
     for t0, t1 in _plain_blocks(nt, p):
         # The walk goes to K1's depth, which is at least the live prefix;
         # the keep mask is zero past the live prefix all the same.
         k1_blk, k2_blk = k1_pixel[t0:t1], k2_pixel[t0:t1]
-        blk = _bwd_block(out, tile_starts, counts, sx, sy, tile_x, t0, t1)._replace(
+        blk = _bwd_block(out, tile_starts, counts, sx, sy, tile_x, tile_h, t0, t1)._replace(
             live=k1_blk.amax(dim=1))
         for k in range(int(blk.live.max()) if t1 > t0 else 0):
             _, _, row, dx, dy, _, _, kept = _bwd_entry(table, entry_rank, blk, k)
@@ -481,14 +532,16 @@ def composite_counts(table, entry_rank, tile_starts, counts, sx, sy, out,
             k1_box += int((inside & (k < k1_blk)).sum())
             k2_box += int((inside & (k < k2_blk)).sum())
             kept_pairs += int(kept.sum())
-            kept_warps += int(kept[:, perm].reshape(t1 - t0, -1, 32).any(dim=2).sum())
+            per_warp = torch.zeros((t1 - t0, n_warps), dtype=torch.int32, device=out.device)
+            kept_warps += int((per_warp.index_add_(1, wid, kept.to(torch.int32)) > 0).sum())
     return {
         "pairs": {"k1": int(k1_pixel.sum()), "k1_box": k1_box,
                   "k2_pixel": int(k2_pixel.sum()), "k2_box": k2_box,
-                  "k2_sub": int(k2_sub.sum()) * SUB_THREADS, "kept": kept_pairs},
-        "warps": {"walked": int(k2_sub.sum()) * (SUB_THREADS // 32), "kept": kept_warps},
+                  "k2_sub": int((k2_sub * sub_pixels).sum()), "kept": kept_pairs},
+        "warps": {"walked": int((k2_sub * sub_warps).sum()), "kept": kept_warps},
         "tile_entries": {"k1": _stats(k1_pixel.amax(dim=1)), "k2": _stats(k2_pixel.amax(dim=1))},
-        "sub_entries": {"k1": _stats(per_sub(k1_pixel)), "k2": _stats(k2_sub)},
+        "sub_entries": {"k1": _stats(subtile_max(k1_pixel, tile_x, tile_h)),
+                        "k2": _stats(k2_sub)},
     }
 
 
@@ -607,40 +660,41 @@ class _CompositeTiles(torch.autograd.Function):
     per-splat rows of the table."""
 
     @staticmethod
-    def forward(ctx, table, entry_rank, tile_starts, counts, sx, sy, tile_x, grad_reduce):
-        out = composite_fwd(table, entry_rank, tile_starts, counts, sx, sy, tile_x)
+    def forward(ctx, table, entry_rank, tile_starts, counts, sx, sy, tile_x, grad_reduce,
+                tile_h=16):
+        out = composite_fwd(table, entry_rank, tile_starts, counts, sx, sy, tile_x, tile_h)
         ctx.save_for_backward(table, entry_rank, tile_starts, counts, sx, sy, out)
-        ctx.tile_x, ctx.grad_reduce = tile_x, grad_reduce
+        ctx.tile_x, ctx.tile_h, ctx.grad_reduce = tile_x, tile_h, grad_reduce
         return out
 
     @staticmethod
     def backward(ctx, gout):
         table, entry_rank, tile_starts, counts, sx, sy, out = ctx.saved_tensors
         rows = composite_bwd(table, entry_rank, tile_starts, counts, sx, sy, out,
-                             gout.contiguous(), ctx.tile_x)
+                             gout.contiguous(), ctx.tile_x, ctx.tile_h)
         n = table.shape[0] - 1
         dtable = torch.cat([reduce_entry_grads(rows, entry_rank, n, ctx.grad_reduce),
                             table.new_zeros((1, TABLE_COLS))])
-        return (dtable,) + (None,) * 7
+        return (dtable,) + (None,) * 8
 
 
 # composite_tiles(table, entry_rank, tile_starts, counts, sx, sy, tile_x,
-# grad_reduce): ``composite_fwd`` with a gradient for ``table``.
+# grad_reduce, tile_h=16): ``composite_fwd`` with a gradient for ``table``.
 composite_tiles = _CompositeTiles.apply
 
 
 def untile(out, background, tiles_x: int, tiles_y: int, tile_x: int,
-           img_height: int, img_width: int):
+           img_height: int, img_width: int, tile_h: int = 16):
     """K1 output -> (H, W, C) image blended over ``background`` (C,) by
     T_final, and (H, W) alpha = 1 - T_final, cropped to the image."""
     c = background.shape[0]
     t_final = out[:, 4, :]
     bg4 = torch.nn.functional.pad(background, (0, 4 - c))
     img4 = out[:, 0:4, :] + t_final[:, None, :] * bg4[None, :, None]
-    img = img4.reshape(tiles_y, tiles_x, 4, TILE, tile_x).permute(0, 3, 1, 4, 2)
-    img = img.reshape(tiles_y * TILE, tiles_x * tile_x, 4)
-    alpha = (1.0 - t_final).reshape(tiles_y, tiles_x, TILE, tile_x).permute(0, 2, 1, 3)
-    alpha = alpha.reshape(tiles_y * TILE, tiles_x * tile_x)
+    img = img4.reshape(tiles_y, tiles_x, 4, tile_h, tile_x).permute(0, 3, 1, 4, 2)
+    img = img.reshape(tiles_y * tile_h, tiles_x * tile_x, 4)
+    alpha = (1.0 - t_final).reshape(tiles_y, tiles_x, tile_h, tile_x).permute(0, 2, 1, 3)
+    alpha = alpha.reshape(tiles_y * tile_h, tiles_x * tile_x)
     return img[:img_height, :img_width, :c], alpha[:img_height, :img_width]
 
 
@@ -664,14 +718,17 @@ def rasterize_cuda(
     row_stride: int = 1,
     row_offset=0,
     return_diagnostics: bool = False,
-    tile_size: int = TILE,
+    tile_size: int = 16,
     tile_x: int = 0,
 ):
     """Rasterize to an (H, W, C<=4) image + (H, W) alpha; dense-oracle
     semantics. Drop-in for ``rasterize_pallas``: with return_diagnostics,
     also returns {'intersections', 'dup_dropped', 'tile_dropped'}.
 
-    ``tile_x`` sets the tile WIDTH (default ``tile_size``; height 16).
+    ``tile_size`` sets the tile HEIGHT and ``tile_x`` the WIDTH: 0 (the
+    default) makes the tile square, ``tile_size`` x ``tile_size`` at any
+    size, as the JAX ``tiled`` backend cuts them; otherwise a positive
+    multiple of 16.
     ``chunk`` rounds the binning capacities and sizes the trailing pad, as
     in the JAX layout. ``grad_reduce`` selects the per-entry -> per-splat
     gradient reduction of the backward (``reduce_entry_grads``).
@@ -681,20 +738,21 @@ def rasterize_cuda(
     """
     if grad_reduce not in GRAD_REDUCE:
         raise ValueError(f"grad_reduce must be one of {GRAD_REDUCE}, got {grad_reduce!r}")
-    if tile_size != TILE:
-        raise NotImplementedError(
-            f"the tile grid is fixed at {TILE}px rows; got tile_size={tile_size}")
+    if tile_size <= 0:
+        raise ValueError(f"tile_size must be positive, got {tile_size}")
+    if tile_x and (tile_x < 0 or tile_x % SUB_X):
+        raise ValueError(f"tile_x must be 0 (square tiles) or a positive multiple of "
+                         f"{SUB_X}, got {tile_x}")
     tile_x = tile_x or tile_size
-    if tile_x <= 0 or tile_x % 16:
-        raise ValueError(f"tile_x must be a positive multiple of 16, got {tile_x}")
     ti = tile_inputs(xys, depths, radii, conics, colors, opacities, valid,
                      img_height, img_width, chunk=chunk, dup_capacity=dup_capacity,
                      max_per_tile=max_per_tile, span_capacity=span_capacity,
-                     tile_x=tile_x, row_stride=row_stride, row_offset=row_offset)
+                     tile_x=tile_x, row_stride=row_stride, row_offset=row_offset,
+                     tile_h=tile_size)
     out = composite_tiles(ti.table, ti.entry_rank, ti.tile_starts, ti.counts,
-                          ti.sx, ti.sy, tile_x, grad_reduce)
+                          ti.sx, ti.sy, tile_x, grad_reduce, tile_size)
     img, alpha = untile(out, background, ti.tiles_x, ti.tiles_y, tile_x,
-                        img_height, img_width)
+                        img_height, img_width, tile_size)
     if return_diagnostics:
         diag = {
             "intersections": ti.bins.total_intersections,

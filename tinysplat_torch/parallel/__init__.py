@@ -3,8 +3,8 @@ step and the mesh trainer.
 
 Torch port of ``tinysplat_tpu.parallel``. Splat parameters and their Adam
 moments are FSDP-sharded over every rank of a ('data', 'tile') mesh, image
-pixel rows over the 'tile' axis (interleaved bands of 16-px tile rows by
-default) and cameras over the 'data' axis. One rank drives one device; the
+pixel rows over the 'tile' axis (interleaved bands of tile rows, ``tile_size`` px
+each, by default) and cameras over the 'data' axis. One rank drives one device; the
 ranks meet only in the collectives of ``collectives`` (NCCL between cards,
 gloo on the CPU and for ranks that share a card). ``local.run`` starts N
 local ranks of one program.

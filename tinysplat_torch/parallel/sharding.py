@@ -8,8 +8,8 @@ coordinates (d, t).
   'data' — camera batch: each data group renders its own training views;
            parameter gradients sum over it (the reduce-scatter that is the
            transpose of the FSDP gather).
-  'tile' — image pixel rows: each rank rasterizes a band of 16-px tile rows
-           of every view its data group renders.
+  'tile' — image pixel rows: each rank rasterizes a band of tile rows
+           (``tile_size`` px each) of every view its data group renders.
 
 Capacity tensors (parameters, Adam moments, alive mask, densify
 accumulator) are sharded over both axes flattened: rank r keeps rows

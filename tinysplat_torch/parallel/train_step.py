@@ -14,9 +14,10 @@ ranks meet only in the collectives of ``collectives.py``:
      splat that may hit its pixel band; ~10 floats a splat instead of the
      parameters. Transpose: a reduce-scatter of the screen-space gradients.
   4. Binning + compositing (K1 forward, K2 and the ``grad_reduce`` reduction
-     backward) of the rank's band of 16-px tile rows only: interleaved
-     (global tile rows {t, t + n_tile, ...}, ``cfg.band_interleave``) or a
-     contiguous strip.
+     backward) of the rank's band of tile rows (``cfg.tile_size`` px) only:
+     interleaved (global tile rows {t, t + n_tile, ...},
+     ``cfg.band_interleave``; needs tile_size >= SSIM_HALO) or a contiguous
+     strip.
   5. L1 + DSSIM (+ the scheduled depth, opacity, MCMC and density terms).
      SSIM is exact under row sharding: each band extends its rows by a
      10-row halo from the band below (ppermute) and masks windows that cross
@@ -161,12 +162,12 @@ def _check_mesh_shape(cfg: Config, H: int, B: int, mesh: Mesh):
         f"band height {Hl} not a multiple of tile_size {cfg.tile_size}; "
         f"pad the image so H is divisible by n_tile * tile_size")
     interleave = bool(cfg.band_interleave) and n_tile > 1
-    if interleave:
-        # The grouped halo ships SSIM_HALO rows a group: a smaller tile
-        # would drop window rows from the loss.
-        assert cfg.tile_size >= SSIM_HALO, (
-            f"band_interleave needs tile_size >= {SSIM_HALO} (got {cfg.tile_size}); "
-            f"disable --band-interleave or use 16px tiles")
+    if interleave and cfg.tile_size < SSIM_HALO:
+        # The grouped halo ships SSIM_HALO rows a group from the next group:
+        # a group shorter than that would drop window rows from the loss.
+        raise ValueError(
+            f"interleaved bands need tile_size >= the SSIM halo of {SSIM_HALO} rows (got "
+            f"{cfg.tile_size}); disable --band-interleave or use larger tiles")
     return Hl, interleave
 
 

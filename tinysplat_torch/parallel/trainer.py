@@ -169,7 +169,7 @@ class MeshTrainer(Trainer):
         return self.state.capacity * self.mesh.size
 
     def _c2f_height_quantum(self) -> int:
-        # H splits into n_tile bands of whole 16-px tile rows.
+        # H splits into n_tile bands of whole tile rows.
         return self.n_tile * self.cfg.tile_size
 
     def _use_depth(self) -> bool:

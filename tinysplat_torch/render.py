@@ -158,8 +158,8 @@ def render(
     (H, W), 'radii' (C,), 'xys' (C, 2), 'depths' (C,), 'camera' dims and,
     for the 'cuda' backend, 'binning' diagnostics.
 
-    Band rendering (``row_stride`` S > 1): only the interleaved global 16-px
-    tile rows {row_offset, row_offset + S, ...} of a ``proj_height``-tall
+    Band rendering (``row_stride`` S > 1): only the interleaved global tile
+    rows (``tile_size`` px) {row_offset, row_offset + S, ...} of a ``proj_height``-tall
     image, into an (img_height, W) band: the per-rank work of the sharded
     trainer's 'tile' axis. Projection and intrinsics use the full height
     (``proj_height``, default img_height). The dense oracle has no bands.

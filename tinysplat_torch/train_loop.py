@@ -282,7 +282,7 @@ class Trainer:
 
     def _c2f_height_quantum(self) -> int:
         """Height snap of reduced resolutions (MeshTrainer: n_tile bands of
-        whole 16-px tile rows)."""
+        whole tile rows)."""
         return self.cfg.tile_size
 
     def _c2f_scale(self) -> float:
