@@ -203,14 +203,33 @@ exits non-zero):
    K2's device times at each shape beside their bounds from the work
    counters and their 16x64 times from phases 4 and 6.
 
+17. The splat-input kernels S1 (``splat_fwd``) and S2 (``splat_bwd``,
+   ``tinysplat_torch/ops/splat_inputs_cuda.py``) on the bench scene (its
+   524,288 slots at 1066x1600) and in phase 7's grown 1,048,576 slots (the
+   slots past the scene dead): (a) S1 against its plain version at active
+   degrees 0 and 3, antialiased off and on, both ``viewdirs_mode``s (each
+   float output within ``FWD_TOL`` x its column max, printed with whether it
+   is bit-equal; radii and tile counts equal but at rounding boundaries,
+   counted; valid equal); (b) S2 against its plain version and against
+   autograd through the plain forward, with a numpy-drawn cotangent and
+   ``pose_opt``'s camera gradients (``BWD_TOL`` x column max), and twice the
+   same bytes; (c) S1's and S2's device times beside their bounds and their
+   plain versions' times; (d) the ``splat_inputs`` layer, a frame and a bare
+   "scatter" step through the kernels and the plain way (``splat_inputs``'
+   Function swapped for the plain forward under autograd), in turns
+   kernels, plain, plain, kernels; the launches of the first turn counted
+   (and none of S1 and S2 in the plain turns), then the step's layers.
+   Every earlier phase runs S1 and S2 too: each counted window expects one
+   S1 per K1 launch and one S2 per K2 launch.
+
 Phase 9 ends with the ``evaluate`` CLI on its step-12 checkpoint (every
 second view), whose per-view PSNR must equal ``Trainer.evaluate``'s to
 1e-3 dB.
 
-The line before the last is the kernels' JSON record (K1-K3's launches
-sum the counted windows of phases 6, 10, 11, 12, 13, 14, 15 and 16,
-``launches_by_phase``; phase 11's sum the four ranks' training windows and
-phase 14's include scaling_bench's nine ranks); the last line is
+The line before the last is the kernels' JSON record (K1-K3's, S1's and
+S2's launches sum the counted windows of phases 6, 10, 11, 12, 13, 14, 15,
+16 and 17, ``launches_by_phase``; phase 11's sum the four ranks' training
+windows and phase 14's include scaling_bench's nine ranks); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -361,6 +380,18 @@ LARGE_BLOCK_SLACK = 1 << 20
 TILE_SHAPES = ((8, 0), (32, 0), (32, 64))
 TILE_TRAIN, TILE_STEPS = ((32, "mxu"), (8, "scatter")), 6
 TILE_HEADROOM, FRAME_TOL = 1.25, 1e-6
+# Phase 17: the splat-input kernels S1 and S2 on the bench scene and at the
+# trainer's grown capacity (phase 7: 1,048,576 slots; the slots past the
+# scene dead). S1 is held to its plain version at active degrees 0 and 3,
+# with antialiased off and on, in both viewdirs modes (splat_inputs_cuda.
+# FWD_TOL); S2 to its plain version and to autograd through the plain forward
+# (BWD_TOL). FLOP per splat of S1 and S2 at SH degree 3, counted from the
+# code and rounded up: they give the operations bound beside the bytes bound.
+SPLAT_CAPACITY = 4 * N_SPLATS
+SPLAT_COMBOS = [(deg, aa, mode) for deg in (0, 3) for aa in (False, True)
+                for mode in ("reference", "position")]
+SPLAT_FWD_FLOP, SPLAT_BWD_FLOP = 500, 1500
+SPLAT_REPS = 5  # layer calls, frames and steps a way in phase 17 (d)
 
 
 def compare_kernel(torch, rc, args, label):
@@ -828,7 +859,7 @@ def trainer_phase(torch, rc, tt, Config, views, gts, serve_state, deg, bg):
               f"mxu; tau_means {tau:.4e} (60% of the live splats pass it at the start)",
               flush=True)
         tr = Trainer(cfg, scene, start)
-        kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+        kernels = counted_kernels(rc)
         for k in kernels:
             k.launches = 0
         step_s, losses, drops = [], [], []
@@ -1001,8 +1032,20 @@ def probes_phase(torch):
              "bound_by": "operations", "library_ms": None})
 
 
+def counted_kernels(rc):
+    """The kernel wrappers whose launches the script counts: K1-K3 and the
+    splat-input kernels S1 and S2."""
+    from tinysplat_torch.ops import splat_inputs_cuda as si
+
+    return (rc.composite_fwd, rc.composite_bwd, rc.segsum, si.splat_fwd, si.splat_bwd)
+
+
 def check_launches(got, want, label):
-    """Raise unless each kernel's launch count is the expected one."""
+    """Raise unless each kernel's launch count is the expected one. Unless
+    ``want`` names them, S1 and S2 are expected as often as K1 and K2: every
+    render runs ``splat_inputs`` (S1) once before K1, and every backward
+    through K1 continues through S2 once."""
+    want = {"splat_fwd": want["composite_fwd"], "splat_bwd": want["composite_bwd"], **want}
     if got != want:
         raise AssertionError(f"{label}: expected launches {want}, counted {got}")
 
@@ -1213,7 +1256,7 @@ def dataset_phase(torch, rc, tt, Config, state, deg, bg, device="cuda", height=H
             viewer._queue_task.cancel()
             return port
 
-        kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+        kernels = counted_kernels(rc)
         for k in kernels:
             k.launches = 0
         port = asyncio.run(serve_and_train())
@@ -1452,7 +1495,7 @@ def mesh_phase(torch, rc, tt, Config, gts, device="cuda", height=HEIGHT, width=W
         tr = Trainer(cfg, scene, start)
         objective = {"start": mesh_objective(torch, tt, tr.state, cfg, cams, device)}
         ref_path = os.path.join(tmp, "before_refine.npz")
-        kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+        kernels = counted_kernels(rc)
         for k in kernels:
             k.launches = 0
         step_s, loss_density = [], []
@@ -1629,7 +1672,7 @@ def shard_rank(mesh_shape, batch, ckpt_dir, scene, frame_cams):
 
     dev = rank_device()
     mesh = make_mesh(*mesh_shape)
-    kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+    kernels = counted_kernels(rc)
     out = {"rank": mesh.rank}
     height = SHARD_HEIGHT
     if frame_cams:
@@ -1701,7 +1744,7 @@ def shard_rank(mesh_shape, batch, ckpt_dir, scene, frame_cams):
 
 
 def shard_phase(torch, Config):
-    """Phase 11: see the module docstring. Returns the K1-K3 launches of
+    """Phase 11: see the module docstring. Returns the K1-K3, S1, S2 launches of
     the 4 ranks' training windows."""
     import chip_smoke  # the ranks import this file by its module name, not as __main__
     from tinysplat_torch.data.synthetic import orbit_cameras
@@ -2003,7 +2046,7 @@ def diffusion_phase(torch, rc, tt, Config, gts):
             refresh_log.append((trainer.step, secs, timers[-1].take()))
             return out
 
-        kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+        kernels = counted_kernels(rc)
         for k in kernels:
             k.launches = 0
         step_s, losses, n_cams = [], [], []
@@ -2205,7 +2248,7 @@ def run_counted(torch, rc, total, phase, label, fn, want):
     """``fn()`` with K1-K3's launch counters from 0; checks them against
     ``want(result)``, adds them to ``total`` and prints the seconds and the
     peak device memory."""
-    kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+    kernels = counted_kernels(rc)
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2233,7 +2276,7 @@ def quality_phase(torch, rc):
         diffusion_ab, quality_bench, quality_real, train_1m_probe, train_diffusion_prior)
 
     phase_t0 = time.perf_counter()
-    total = {k.__name__: 0 for k in (rc.composite_fwd, rc.composite_bwd, rc.segsum)}
+    total = {k.__name__: 0 for k in counted_kernels(rc)}
     card = gpu_name_and_limit()
     print(f"phase 13: the quality tools on the card ({card})", flush=True)
 
@@ -2389,7 +2432,7 @@ def tools_phase(torch, rc):
         profile_bench, profile_train_step, scaling_bench, scaling_model, sweep_bench)
 
     phase_t0 = time.perf_counter()
-    total = {k.__name__: 0 for k in (rc.composite_fwd, rc.composite_bwd, rc.segsum)}
+    total = {k.__name__: 0 for k in counted_kernels(rc)}
     print(f"phase 14: the profiling, sweep and scaling tools on the card "
           f"({gpu_name_and_limit()})", flush=True)
 
@@ -2496,7 +2539,7 @@ def bench_phase(torch, rc):
     from tinysplat_torch.scripts import bench
 
     phase_t0 = time.perf_counter()
-    total = {k.__name__: 0 for k in (rc.composite_fwd, rc.composite_bwd, rc.segsum)}
+    total = {k.__name__: 0 for k in counted_kernels(rc)}
     print(f"phase 15: the headline bench on the card ({gpu_name_and_limit()})", flush=True)
     with open(os.path.join(HERE, "BENCH_r05.json")) as f:
         tpu = json.load(f)["parsed"]
@@ -2609,7 +2652,7 @@ def tile_heights_phase(torch, rc, tt, Config, state, deg, bg, cam, frame16, view
     from tinysplat_torch.train_loop import Trainer
 
     phase_t0 = time.perf_counter()
-    kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+    kernels = counted_kernels(rc)
     total = {k.__name__: 0 for k in kernels}
     print(f"phase 16: tile heights, {N_SPLATS} splats, {HEIGHT}x{WIDTH} "
           f"({gpu_name_and_limit()})", flush=True)
@@ -2755,6 +2798,185 @@ def tile_heights_phase(torch, rc, tt, Config, state, deg, bg, cam, frame16, view
     return total
 
 
+def pad_params(torch, params, alive, capacity):
+    """``params`` and ``alive`` padded with dead slots (the port's sentinels:
+    identity quats, scales -10, opacity logits -20, zeros) to ``capacity``."""
+    from tinysplat_torch.models.gaussians import GaussianParams
+
+    extra = capacity - params.means.shape[0]
+    fill = {"scales": -10.0, "opacities": -20.0}
+    fields = {}
+    for name, t in params.fields():
+        pad = t.new_full((extra,) + tuple(t.shape[1:]), fill.get(name, 0.0))
+        if name == "quats":
+            pad[:, 0] = 1.0
+        fields[name] = torch.cat([t.detach(), pad])
+    return GaussianParams(**fields), torch.cat([alive, alive.new_zeros(extra)])
+
+
+def splat_phase(torch, rc, tt, state, cam, train, opt, views, gts, cfg):
+    """Phase 17: see the module docstring. Returns S1's and S2's rows of the
+    kernels' JSON line (without launches) and the launches of (d)'s counted
+    run through the kernels."""
+    from tinysplat_torch.ops import splat_inputs_cuda as si
+    from tinysplat_torch.probes import timed_ms
+    from tinysplat_torch.render import render, splat_inputs
+
+    render_mod = sys.modules["tinysplat_torch.render"]  # the attribute is the function
+    phase_t0 = time.perf_counter()
+    print(f"phase 17: the splat-input kernels S1 and S2 ({gpu_name_and_limit()}), "
+          f"{N_SPLATS} splats in {state.capacity} slots at {HEIGHT}x{WIDTH}, and in "
+          f"{SPLAT_CAPACITY} slots", flush=True)
+    big, big_alive = pad_params(torch, state.params, state.alive, SPLAT_CAPACITY)
+    full = cam.projmat @ cam.viewmat
+    bg = torch.zeros(3, device="cuda")
+
+    def fwd_args(params, alive):
+        return (params.means, params.scales, params.quats, params.colors_dc,
+                params.colors_rest, params.opacities, alive, cam.viewmat, full, cam.cam_pos,
+                cam.fx, cam.fy, cam.cx_off, cam.cy_off)
+
+    # (a) S1 against its plain version.
+    s1_err = None
+    cases = [(state.params, state.alive, *c) for c in SPLAT_COMBOS]
+    cases.append((big, big_alive, 3, False, "reference"))
+    for params, alive, deg, aa, mode in cases:
+        layout = si.SplatLayout(WIDTH, HEIGHT, 16, mode, aa)
+        with torch.no_grad():
+            got = si.splat_fwd(*fwd_args(params, alive), deg, layout)
+            ref = si.splat_fwd_plain(*fwd_args(params, alive), deg, layout)
+        torch.cuda.synchronize()
+        rep = si.forward_mismatch(got, ref, layout.tile_size)
+        floats = "; ".join(
+            f"{k} {rep[k]['max_abs']:.3e} ({rep[k]['scaled']:.2e} of max"
+            f"{', bit-equal' if rep[k]['bit_equal'] else ''})" for k in si.FLOAT_OUTPUTS)
+        print(f"  (a) S1 vs plain, {params.means.shape[0]} slots, degree {deg}, antialiased "
+              f"{aa}, {mode}: {floats}; radii differ at {rep['radii']['differ']} splats "
+              f"({rep['radii']['off_boundary']} off a ceil boundary), tile counts at "
+              f"{rep['num_tiles_hit']['differ']} ({rep['num_tiles_hit']['off_boundary']} off "
+              f"a boundary); valid equal {rep['valid_equal']}", flush=True)
+        if not rep["ok"]:
+            raise AssertionError(f"phase 17: S1 disagrees with its plain version: {rep}")
+        if params is state.params and (deg, aa, mode) == (3, False, "reference"):
+            s1_err = max(rep[k]["max_abs"] for k in si.FLOAT_OUTPUTS)
+
+    # (b) S2 against its plain version and autograd, with pose_opt's camera
+    # gradients, twice the same bytes.
+    rng = np.random.default_rng(17)
+    s2_err = None
+    for params, alive, aa, mode in ((state.params, state.alive, False, "reference"),
+                                    (state.params, state.alive, True, "position"),
+                                    (big, big_alive, False, "reference")):
+        n = params.means.shape[0]
+        layout = si.SplatLayout(WIDTH, HEIGHT, 16, mode, aa)
+        cot = [torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
+               for shape in ((n, 2), (n,), (n, 3), (n, 4), (n,))]
+        ins = [t.detach() for t in fwd_args(params, alive)]
+        bargs = (*ins[:6], *ins[7:12], 3, layout, *cot, True)
+        got, again = si.splat_bwd(*bargs), si.splat_bwd(*bargs)
+        ref = si.splat_bwd_plain(*bargs)
+        leaves = [t.clone().requires_grad_() for t in ins[:6] + ins[7:10]]
+        out = si.splat_fwd_plain(*leaves[:6], alive, *leaves[6:], *ins[10:14], 3, layout)
+        loss = sum((getattr(out, k) * c).sum() for k, c in zip(si.FLOAT_OUTPUTS, cot))
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        g_pos = g[8] if g[8] is not None else torch.zeros(3, device="cuda")
+        auto = (*g[:6], torch.cat([g[6][:3].reshape(-1), g[7].reshape(-1), g_pos]))
+        torch.cuda.synchronize()
+        same = all(same_bytes(torch, a, b) for a, b in zip(got, again))
+        rep_p, rep_a = si.backward_mismatch(got, ref), si.backward_mismatch(got, auto)
+        fmt = lambda r: {k: float(f"{v[1]:.2e}") for k, v in r.items() if k != "ok"}
+        print(f"  (b) S2, {n} slots, antialiased {aa}, {mode}: twice the same bytes {same}; "
+              f"vs plain, over the column max {fmt(rep_p)}; vs autograd {fmt(rep_a)}",
+              flush=True)
+        if not (same and rep_p["ok"] and rep_a["ok"]):
+            raise AssertionError(f"phase 17: S2 disagrees (same bytes {same}): plain {rep_p}, "
+                                 f"autograd {rep_a}")
+        if s2_err is None:
+            s2_err = max(v[0] for k, v in rep_p.items() if k != "ok")
+        del leaves, out, g
+
+    # (c) device times at the main path's shapes against their bounds.
+    layout = si.SplatLayout(WIDTH, HEIGHT, 16)
+    deg = state.active_sh_degree
+    args = fwd_args(state.params, state.alive)
+    with torch.no_grad():
+        s1_ms = timed_ms(lambda: si.splat_fwd(*args, deg, layout), 20, device_only=True)
+        s1_plain = timed_ms(lambda: si.splat_fwd_plain(*args, deg, layout), 5, device_only=True)
+    ins, n = [t.detach() for t in args], state.capacity
+    cot = [torch.ones(shape, device="cuda") for shape in ((n, 2), (n,), (n, 3), (n, 4), (n,))]
+    bargs = (*ins[:6], *ins[7:12], deg, layout, *cot)
+    s2_ms = timed_ms(lambda: si.splat_bwd(*bargs, False), 20, device_only=True)
+    s2_cam_ms = timed_ms(lambda: si.splat_bwd(*bargs, True), 20, device_only=True)
+    s2_plain = timed_ms(lambda: si.splat_bwd_plain(*bargs, False), 3, device_only=True)
+    kb = state.params.colors_rest.shape[1] + 1
+    rows = {}
+    for name, ms, plain, nbytes_, flop, extra in (
+            ("splat_fwd", s1_ms, s1_plain, si.layer_bytes(n, kb)[0], SPLAT_FWD_FLOP, ""),
+            ("splat_bwd", s2_ms, s2_plain, si.layer_bytes(n, kb)[1], SPLAT_BWD_FLOP,
+             f"; with pose_opt's camera gradient {s2_cam_ms:.4f} ms")):
+        bytes_ms = nbytes_ / HBM_BYTES_PER_S * 1e3
+        ops_ms = n * flop / FP32_FLOPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        print(f"  (c) {name}: {ms:.4f} ms (median of 20, device time){extra}; plain version "
+              f"{plain:.3f} ms; bound {bound:.4f} ms by "
+              f"{'bytes' if bytes_ms >= ops_ms else 'operations'} ({nbytes_} bytes -> "
+              f"{bytes_ms:.4f} ms; {n} slots x {flop} FLOP -> {ops_ms:.4f} ms), "
+              f"{bound / ms:.1%} of it", flush=True)
+        rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    rows["splat_fwd"]["max_abs_err"], rows["splat_bwd"]["max_abs_err"] = s1_err, s2_err
+
+    # (d) the layer, a frame and a bare step, through the kernels and the
+    # plain way (splat_inputs' Function swapped for the plain forward under
+    # autograd), in turns: kernels, plain, plain, kernels.
+    kernels = counted_kernels(rc)
+    step_fn = tt.make_train_step(cfg, HEIGHT, WIDTH)
+
+    def one_way(label, step):
+        layer = timed_ms(lambda: splat_inputs(state.params, state.alive, cam, HEIGHT, WIDTH,
+                                              deg, bg), SPLAT_REPS)
+        frames = []
+        for _ in range(SPLAT_REPS):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            with torch.no_grad():
+                render(state.params, state.alive, cam, HEIGHT, WIDTH, deg, bg, **RENDER_KW)
+            end.record()
+            end.synchronize()
+            frames.append(start.elapsed_time(end))
+        nonlocal train
+        train, log = train_steps(torch, step_fn, train, opt, views, gts, step, SPLAT_REPS)
+        check_steps(torch, log, f"phase 17 {label}")
+        step_ms = statistics.median(ms for _, ms, _, _ in log)
+        print(f"  (d) {label}: splat_inputs layer {layer:.3f} ms, frame median "
+              f"{statistics.median(frames):.3f} ms, bare step median {step_ms:.3f} ms "
+              f"(CUDA events, {SPLAT_REPS} each)", flush=True)
+        return step_ms
+
+    fused = render_mod.fused_splat_inputs
+    launches, step_ms = None, {}
+    for i, way in enumerate(("kernels", "plain", "plain", "kernels")):
+        render_mod.fused_splat_inputs = fused if way == "kernels" else si.splat_fwd_plain
+        for k in kernels:
+            k.launches = 0
+        try:
+            step_ms.setdefault(way, []).append(one_way(f"{way} ({i + 1} of 4)", 100 + 10 * i))
+        finally:
+            render_mod.fused_splat_inputs = fused
+        got = {k.__name__: k.launches for k in kernels}
+        want = {"composite_fwd": 2 * SPLAT_REPS, "composite_bwd": SPLAT_REPS, "segsum": 0,
+                "splat_fwd": 3 * SPLAT_REPS if way == "kernels" else 0,
+                "splat_bwd": SPLAT_REPS if way == "kernels" else 0}
+        check_launches(got, want, f"phase 17 (d) {way}")
+        if launches is None:
+            launches = got
+    train_layers(torch, rc, tt, train, opt, views[0], gts[0], cfg,
+                 statistics.median(step_ms["kernels"]))
+    print(f"  phase 17: launches {launches}; {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -2767,6 +2989,7 @@ def main() -> int:
     from tinysplat_torch.io.checkpoint import load_model
     from tinysplat_torch.ops import _build
     from tinysplat_torch.ops import rasterize_cuda as rc
+    from tinysplat_torch.ops import splat_inputs_cuda as si
     from tinysplat_torch.probes import timed_ms
     from tinysplat_torch.render import render, splat_inputs
 
@@ -2847,7 +3070,7 @@ def main() -> int:
         frame(cam)
     torch.cuda.synchronize()
 
-    rc.composite_fwd.launches = 0
+    rc.composite_fwd.launches = si.splat_fwd.launches = 0
     frame_ms, host_ms, results = [], [], []
     for cam in cams:
         start = torch.cuda.Event(enable_timing=True)
@@ -2861,9 +3084,11 @@ def main() -> int:
         frame_ms.append(start.elapsed_time(end))
         results.append((rgb, extras))
     launches = rc.composite_fwd.launches
-    print(f"  composite_fwd launches during the {FRAMES} frames: {launches}", flush=True)
-    if launches != FRAMES:
-        raise AssertionError(f"expected {FRAMES} K1 launches, counted {launches}")
+    print(f"  composite_fwd launches during the {FRAMES} frames: {launches}; splat_fwd "
+          f"{si.splat_fwd.launches}", flush=True)
+    if launches != FRAMES or si.splat_fwd.launches != FRAMES:
+        raise AssertionError(f"expected {FRAMES} K1 and S1 launches, counted {launches} and "
+                             f"{si.splat_fwd.launches}")
 
     depth_medians = []
     for i, (rgb, ex) in enumerate(results):
@@ -2977,7 +3202,7 @@ def main() -> int:
     ti0, out0, gout0 = backward_inputs(torch, rc, train, views[0], gts[0], step0_deg, cfg)
 
     step_fn = tt.make_train_step(cfg, HEIGHT, WIDTH)
-    kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum)
+    kernels = counted_kernels(rc)
     for k in kernels:
         k.launches = 0
     train, log = train_steps(torch, step_fn, train, opt, views, gts, 0, SCATTER_STEPS)
@@ -2987,9 +3212,9 @@ def main() -> int:
           f"{[round(x, 5) for x in losses]}; psnr {[round(float(m['psnr']), 3) for m, *_ in log]}",
           flush=True)
     check_steps(torch, log, "scatter")
-    if (train_launches["composite_fwd"] != SCATTER_STEPS
-            or train_launches["composite_bwd"] != SCATTER_STEPS):
-        raise AssertionError(f"expected {SCATTER_STEPS} K1 and K2 launches in "
+    if any(train_launches[k] != SCATTER_STEPS
+           for k in ("composite_fwd", "composite_bwd", "splat_fwd", "splat_bwd")):
+        raise AssertionError(f"expected {SCATTER_STEPS} K1, K2, S1 and S2 launches in "
                              f"{SCATTER_STEPS} steps, counted {train_launches}")
     if not statistics.mean(losses[-3:]) < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
@@ -3094,11 +3319,16 @@ def main() -> int:
     tile_launches = tile_heights_phase(torch, rc, tt, Config, state, deg, bg, cams[0],
                                        (rgb0, ex0["alpha"]), views, gts,
                                        {"k1": k1_ms, "k2": k2_ms})
+
+    # -- 17. the splat-input kernels S1 and S2 ------------------------------------------------
+    splat_rows, splat_launches = splat_phase(torch, rc, tt, state, cams[0], train, opt, views,
+                                             gts, cfg)
     by_phase = {name: {"6": train_launches[name] if name != "segsum" else
                        mxu_launches["segsum"], "10": mesh_launches[name],
                        "11": shard_launches[name], "12": diffusion_launches[name],
                        "13": quality_launches[name], "14": tools_launches[name],
-                       "15": bench_launches[name], "16": tile_launches[name]}
+                       "15": bench_launches[name], "16": tile_launches[name],
+                       "17": splat_launches[name]}
                 for name in mesh_launches}
 
     record = {"kernels": [{
@@ -3140,7 +3370,16 @@ def main() -> int:
         "bound_ms": k3_bound_ms,
         "bound_by": k3_by,
         "library_ms": k3_lib_ms,
-    }, p1, p2]}
+    }, p1, p2] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"tinysplat_torch/csrc/{name}.cu",
+        "replaces": "tinysplat_tpu/render.py:139",
+        "launches": sum(by_phase[name].values()),
+        "launches_by_phase": by_phase[name],
+        **splat_rows[name],
+        "library_ms": None,
+    } for name in ("splat_fwd", "splat_bwd")]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
+from tinysplat_torch.data.synthetic import orbit_cameras
 from tinysplat_torch.ops import rasterize_cuda as rc
+from tinysplat_torch.ops import splat_inputs_cuda as si
 from tinysplat_torch.probes import bitcast, op_costs
 
 
@@ -480,3 +482,67 @@ def test_diffusion_forward_runs_without_tf32_and_restores_the_flags():
     finally:
         for f, v in zip(flags, saved):
             f.allow_tf32 = v
+
+
+def _splat_case(n, stored_deg, seed):
+    """S1's inputs on the card: n random splats with SH degree ``stored_deg``
+    (a tenth of them dead) before an orbit camera with a principal-point
+    offset, a 76 x 100 image and 12-px tiles (1/12 is inexact, as torch's
+    product with a host scalar's reciprocal is); odd degrees take the true
+    camera position, degrees from 2 on the antialiased opacities."""
+    _need_card()
+    rng = np.random.default_rng(seed)
+    kb = (stored_deg + 1) ** 2
+
+    def cuda(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device="cuda")
+
+    cam = orbit_cameras(3, width=100, height=76)[1].params(device="cuda")
+    args = (cuda(rng.normal(0.0, 0.8, (n, 3))), cuda(rng.uniform(-4.0, -1.5, (n, 3))),
+            cuda(rng.normal(size=(n, 4))), cuda(rng.normal(0.0, 1.0, (n, 3))),
+            cuda(rng.normal(0.0, 0.3, (n, kb - 1, 3))), cuda(rng.normal(0.0, 2.0, (n, 1))),
+            torch.as_tensor(rng.uniform(size=n) > 0.1, device="cuda"), cam.viewmat,
+            cam.projmat @ cam.viewmat, cam.cam_pos, cam.fx, cam.fy, cuda(1.5), cuda(-2.25))
+    layout = si.SplatLayout(100, 76, 12, "position" if stored_deg % 2 else "reference",
+                            stored_deg >= 2)
+    return args, layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("n", [1, 255, 257])
+def test_s1_matches_plain(n, deg):
+    args, layout = _splat_case(n, deg, seed=10 * n + deg)
+    for active in sorted({deg, max(deg - 1, 0)}):
+        before = si.splat_fwd.launches
+        got = si.splat_fwd(*args, active, layout)
+        assert si.splat_fwd.launches == before + 1
+        ref = si.splat_fwd_plain(*args, active, layout)
+        torch.cuda.synchronize()
+        report = si.forward_mismatch(got, ref, layout.tile_size)
+        assert report["ok"], str(report)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("n", [1, 255, 257])
+def test_s2_matches_plain_and_repeats(n, deg):
+    args, layout = _splat_case(n, deg, seed=10 * n + deg)
+    rng = np.random.default_rng(n + deg)
+    cot = [torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
+           for shape in ((n, 2), (n,), (n, 3), (n, 4), (n,))]
+    bargs = (*args[:6], *args[7:12], deg, layout, *cot)
+    for cam_grad in (False, True):
+        before = si.splat_bwd.launches
+        got = si.splat_bwd(*bargs, cam_grad)
+        assert si.splat_bwd.launches == before + 1
+        again = si.splat_bwd(*bargs, cam_grad)
+        ref = si.splat_bwd_plain(*bargs, cam_grad)
+        torch.cuda.synchronize()
+        assert (got[6] is None) == (again[6] is None) == (not cam_grad)
+        for a, b in zip(got, again):
+            if a is not None:
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        report = si.backward_mismatch(got, ref, per_column=n > 1)
+        assert report["ok"], str(report)
+

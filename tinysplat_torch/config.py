@@ -141,7 +141,8 @@ class Config:
     # instead of contiguous bands (parallel.make_sharded_train_step).
     band_interleave: bool = True
     # Mip-Splatting opacity compensation (beyond-reference; the legacy
-    # gsplat API has no antialiased mode). See render.antialias_compensation.
+    # gsplat API has no antialiased mode). See
+    # ops.splat_inputs_cuda.antialias_compensation.
     antialiased: bool = False
     # Densification strategy (beyond-reference): 'default' = the reference's
     # clone/split/prune heuristics (models/densify.py); 'mcmc' = 3DGS-MCMC
@@ -184,7 +185,7 @@ class Config:
     mcmc_noise_lr: float = 5e5  # noise scale x current means LR (gsplat)
     lambda_mcmc_opacity: float = 0.01  # L1 opacity sparsity regularizer
     lambda_mcmc_scale: float = 0.01  # L1 scale regularizer
-    viewdirs_mode: str = "reference"  # see render.compute_viewdirs
+    viewdirs_mode: str = "reference"  # see ops.splat_inputs_cuda.view_origin
     # Divergence guard: in-memory snapshot every k steps; non-finite loss
     # rolls training back to it with fresh RNG (0 disables).
     nan_guard_interval: int = 200

@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. On first use it is compiled
 by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/torch_kernels/`` at the repository root and loaded with ``ctypes``.
-The library's file name carries a hash of its source and of the shared
-headers (``csrc/*.cuh``), so an edited source is rebuilt and a stale
-library is never loaded. Several sources build in
+The library's file name carries a hash of its source, of the shared
+headers (``csrc/*.cuh``) and of its flags, so an edited source is rebuilt
+and a stale library is never loaded. Several sources build in
 parallel: one ``nvcc`` process each, all started together.
 """
 from __future__ import annotations
@@ -25,7 +25,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("composite_fwd", "composite_bwd", "segsum", "probe_bitcast", "probe_op_costs")
+KERNELS = ("composite_fwd", "composite_bwd", "segsum", "probe_bitcast", "probe_op_costs",
+           "splat_fwd", "splat_bwd")
+# Flags of one source only. The splat-input kernels round every product and
+# sum on its own, as the torch ops of their plain version do.
+EXTRA_FLAGS = {"splat_fwd": ("-fmad=false",), "splat_bwd": ("-fmad=false",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # A viewer thread and the trainer's thread may launch a kernel first at once.
@@ -46,6 +50,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ())).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:12]
@@ -71,7 +76,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", tmp,
+               str(CSRC / f"{name}.cu")]
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failures = []

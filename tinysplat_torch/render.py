@@ -19,26 +19,10 @@ import torch
 
 from .cameras import CameraParams
 from .models.gaussians import GaussianParams
-from .ops.projection import COV2D_BLUR, ProjectedGaussians, project_gaussians
-from .ops.sh import eval_sh
+from .ops.projection import ProjectedGaussians
+from .ops.splat_inputs_cuda import SplatLayout, fused_splat_inputs
 
 RASTERIZERS = ("auto", "cuda", "dense")
-
-
-def antialias_compensation(conics: torch.Tensor) -> torch.Tensor:
-    """Mip-Splatting opacity compensation sqrt(det Σ / det(Σ + blur·I)).
-
-    ``conics`` (..., 3) is the inverse of the BLURRED 2D covariance; both
-    determinants are recoverable from it (Σ = adj(conic)/det(conic)).
-    """
-    a, b, c = conics[..., 0], conics[..., 1], conics[..., 2]
-    det_conic = a * c - b * b  # = 1 / det(Σ_blur); > 0 for valid splats
-    safe = torch.clamp(det_conic, min=1e-12)
-    det_orig = (c / safe - COV2D_BLUR) * (a / safe - COV2D_BLUR) - (b / safe) ** 2
-    ratio = det_orig * safe  # det_orig / det_blur
-    # The floor stays above zero so that sqrt keeps a finite gradient.
-    comp = torch.sqrt(torch.clamp(ratio, 1e-8, 1.0))
-    return torch.where(det_conic > 0, comp, 0.0)
 
 
 def resolve_rasterizer(name: str) -> str:
@@ -51,24 +35,6 @@ def resolve_rasterizer(name: str) -> str:
             f"unknown rasterizer {name!r}: the PyTorch port has {RASTERIZERS} "
             "('tiled' and 'pallas' are JAX-package backends)")
     return name
-
-
-def compute_viewdirs(means: torch.Tensor, camera: CameraParams,
-                     mode: str = "reference") -> torch.Tensor:
-    """Per-splat unit view directions for SH evaluation.
-
-    mode='reference' uses the view matrix's translation column (-R @ p) as
-    the "camera position", as the reference framework (and its trained SH
-    coefficients) do; mode='position' uses the true camera center.
-    """
-    if mode == "reference":
-        origin = camera.viewmat[:3, 3]
-    elif mode == "position":
-        origin = camera.cam_pos
-    else:
-        raise ValueError(mode)
-    dirs = means - origin
-    return dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
 
 
 class SplatInputs(NamedTuple):
@@ -88,42 +54,25 @@ def splat_inputs(params: GaussianParams, alive, camera: CameraParams,
                  viewdirs_mode: str = "reference", tile_size: int = 16,
                  antialiased: bool = False, proj_height: int = 0) -> SplatInputs:
     """EWA projection, SH colours (+0.5 shift, >= 0 clamp) and sigmoid
-    opacities for one camera: the first half of :func:`render`."""
-    ph = proj_height or img_height
-    proj = project_gaussians(
-        means=params.means,
-        scales=torch.exp(params.scales),
-        glob_scale=1.0,
-        quats=params.quats,
-        viewmat=camera.viewmat,
-        full_projmat=camera.projmat @ camera.viewmat,
-        fx=camera.fx,
-        fy=camera.fy,
-        cx=img_width / 2.0 + camera.cx_off,
-        cy=ph / 2.0 + camera.cy_off,
-        img_height=ph,
-        img_width=img_width,
-        tile_size=tile_size,
-    )
-    xys = proj.xys
-    if xys_probe is not None:
-        xys = xys + xys_probe
+    opacities for one camera: the first half of :func:`render`.
 
-    viewdirs = compute_viewdirs(params.means, camera, viewdirs_mode)
-    rgbs = eval_sh(active_sh_degree, viewdirs, params.sh_coeffs())
-    # maximum / minimum, not clamp: at a tie (an SfM colour channel of 0
-    # gives exactly 0 here) the gradient is split in half, as in the JAX
-    # package; clamp would pass all of it.
-    rgbs = torch.maximum(rgbs + 0.5, rgbs.new_zeros(()))
-
-    opacities = torch.sigmoid(params.opacities.reshape(-1))
-    if antialiased:
-        opacities = opacities * antialias_compensation(proj.conics)
-    valid = proj.valid & alive
-
-    colors4 = torch.cat([rgbs, proj.depths[:, None]], dim=-1)
+    One pass of the splat-input kernel S1 on CUDA tensors (its plain version
+    on CPU tensors), with S2 as its backward
+    (``ops.splat_inputs_cuda.fused_splat_inputs``). ``proj.valid`` here is
+    ``valid``: in front, invertible and alive.
+    """
+    layout = SplatLayout(img_width, proj_height or img_height, tile_size, viewdirs_mode,
+                         antialiased)
+    out = fused_splat_inputs(
+        params.means, params.scales, params.quats, params.colors_dc, params.colors_rest,
+        params.opacities, alive, camera.viewmat, camera.projmat @ camera.viewmat,
+        camera.cam_pos, camera.fx, camera.fy, camera.cx_off, camera.cy_off,
+        active_sh_degree, layout)
+    proj = ProjectedGaussians(out.xys, out.depths, out.radii, out.conics, out.num_tiles_hit,
+                              out.valid)
+    xys = out.xys if xys_probe is None else out.xys + xys_probe
     bg4 = torch.cat([background, background[:1]], dim=-1)
-    return SplatInputs(proj, xys, colors4, opacities, valid, bg4)
+    return SplatInputs(proj, xys, out.colors4, out.opacities, out.valid, bg4)
 
 
 def render(
