@@ -214,7 +214,9 @@ exits non-zero):
    autograd through the plain forward, with a numpy-drawn cotangent and
    ``pose_opt``'s camera gradients (``BWD_TOL`` x column max), and twice the
    same bytes; (c) S1's and S2's device times beside their bounds and their
-   plain versions' times; (d) the ``splat_inputs`` layer, a frame and a bare
+   plain versions' times, S2's with the camera gradient too, and S2's
+   registers, local (spill) bytes, shared memory and resident blocks an SM
+   at every SH degree, as the CUDA runtime reports them; (d) the ``splat_inputs`` layer, a frame and a bare
    "scatter" step through the kernels and the plain way (``splat_inputs``'
    Function swapped for the plain forward under autograd), in turns
    kernels, plain, plain, kernels; the launches of the first turn counted
@@ -2909,6 +2911,14 @@ def splat_phase(torch, rc, tt, state, cam, train, opt, views, gts, cfg):
     s2_cam_ms = timed_ms(lambda: si.splat_bwd(*bargs, True), 20, device_only=True)
     s2_plain = timed_ms(lambda: si.splat_bwd_plain(*bargs, False), 3, device_only=True)
     kb = state.params.colors_rest.shape[1] + 1
+    for k in (1, 4, 9, 16, 25):
+        occ = si.bwd_occupancy(k)
+        print(f"  (c) splat_bwd at {k} SH bases: {occ['registers']} registers and "
+              f"{occ['local_bytes']} local (spill) bytes a thread, {occ['smem_bytes']} B of "
+              f"shared memory a block of {occ['threads']}, {occ['blocks_per_sm']} blocks "
+              f"resident an SM", flush=True)
+        if k == kb:
+            s2_occ = occ
     rows = {}
     for name, ms, plain, nbytes_, flop, extra in (
             ("splat_fwd", s1_ms, s1_plain, si.layer_bytes(n, kb)[0], SPLAT_FWD_FLOP, ""),
@@ -2925,6 +2935,10 @@ def splat_phase(torch, rc, tt, state, cam, train, opt, views, gts, cfg):
         rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
                       "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     rows["splat_fwd"]["max_abs_err"], rows["splat_bwd"]["max_abs_err"] = s1_err, s2_err
+    rows["splat_bwd"].update(cam_ms=s2_cam_ms, registers=s2_occ["registers"],
+                             spill_bytes=s2_occ["local_bytes"],
+                             smem_bytes=s2_occ["smem_bytes"],
+                             blocks_per_sm=s2_occ["blocks_per_sm"])
 
     # (d) the layer, a frame and a bare step, through the kernels and the
     # plain way (splat_inputs' Function swapped for the plain forward under

@@ -20,6 +20,7 @@ import torch
 from tinysplat_torch.data.synthetic import orbit_cameras
 from tinysplat_torch.ops import rasterize_cuda as rc
 from tinysplat_torch.ops import splat_inputs_cuda as si
+from tinysplat_torch.ops.sh import SH_C0, eval_sh
 from tinysplat_torch.probes import bitcast, op_costs
 
 
@@ -523,21 +524,49 @@ def test_s1_matches_plain(n, deg):
         assert report["ok"], str(report)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
-@pytest.mark.parametrize("n", [1, 255, 257])
-def test_s2_matches_plain_and_repeats(n, deg):
-    args, layout = _splat_case(n, deg, seed=10 * n + deg)
-    rng = np.random.default_rng(n + deg)
-    cot = [torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
-           for shape in ((n, 2), (n,), (n, 3), (n, 4), (n,))]
-    bargs = (*args[:6], *args[7:12], deg, layout, *cot)
+def _off_the_kink(args, bargs):
+    """``bargs`` with the colour cotangent zeroed where maximum(v, 0) is at
+    its kink, and the original cotangent there.
+
+    S1's fused multiply-add chain and the plain version's einsum sum the SH
+    colour v in different orders (FWD_TOL): where the plain v lies within
+    FWD_TOL x its column max of 0, the two may fall on different sides of
+    the kink (an exact tie in one, 1e-7 in the other), and each backward
+    then takes its own forward's subgradient. S2 must take S1's: the caller
+    checks that at these channels, and holds S2 to the plain version
+    everywhere else."""
+    deg, layout, g_colors4 = bargs[11], bargs[12], bargs[16]
+    origin = si.view_origin(args[7], args[9], layout.viewdirs_mode)
+    v = eval_sh(deg, si.view_directions(args[0], origin),
+                torch.cat([args[3][:, None, :], args[4]], dim=1)) + 0.5
+    kink = torch.zeros_like(g_colors4, dtype=torch.bool)
+    kink[:, :3] = v.abs() <= si.FWD_TOL * v.abs().amax(dim=0)
+    off = list(bargs)
+    off[16] = torch.where(kink, 0.0, g_colors4)
+    return off, kink
+
+
+def _s2_holds(args, bargs, n):
+    """S2 on ``bargs`` (without and with the camera gradient): one launch
+    counted, the same bytes twice, within BWD_TOL of its plain version off
+    maximum's kink, and at the kink S1's subgradient. Returns the gradients
+    with the camera's."""
+    off, kink = _off_the_kink(args, bargs)
+    assert int(kink.sum()) <= 8  # an ulp of a colour from 0: rare
+    if kink.any():
+        g_dc = si.splat_bwd(*bargs, False)[3]
+        colour = si.splat_fwd(*args, bargs[11], bargs[12]).colors4[:, :3]
+        c0 = torch.tensor(SH_C0, dtype=torch.float32, device="cuda")
+        for j, ch in kink[:, :3].nonzero().tolist():
+            g = bargs[16][j, ch]
+            sides = [c0 * g] if colour[j, ch] > 0 else [c0 * (g / 2), c0 * 0.0]
+            assert any(torch.equal(g_dc[j, ch], x) for x in sides), (j, ch)
     for cam_grad in (False, True):
         before = si.splat_bwd.launches
-        got = si.splat_bwd(*bargs, cam_grad)
+        got = si.splat_bwd(*off, cam_grad)
         assert si.splat_bwd.launches == before + 1
-        again = si.splat_bwd(*bargs, cam_grad)
-        ref = si.splat_bwd_plain(*bargs, cam_grad)
+        again = si.splat_bwd(*off, cam_grad)
+        ref = si.splat_bwd_plain(*off, cam_grad)
         torch.cuda.synchronize()
         assert (got[6] is None) == (again[6] is None) == (not cam_grad)
         for a, b in zip(got, again):
@@ -545,4 +574,47 @@ def test_s2_matches_plain_and_repeats(n, deg):
                 assert torch.equal(a.view(torch.int32), b.view(torch.int32))
         report = si.backward_mismatch(got, ref, per_column=n > 1)
         assert report["ok"], str(report)
+    return got
+
+
+def _s2_args(n, deg):
+    """S1's arguments of ``_splat_case`` and S2's: those with the degree,
+    the layout and a numpy-drawn cotangent."""
+    args, layout = _splat_case(n, deg, seed=10 * n + deg)
+    rng = np.random.default_rng(n + deg)
+    cot = [torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
+           for shape in ((n, 2), (n,), (n, 3), (n, 4), (n,))]
+    return args, (*args[:6], *args[7:12], deg, layout, *cot)
+
+
+# S2's blocks hold 128 splats: 127-129 straddle a block's edge; 70,001 leaves
+# a ragged last block of 113 splats, whose span of colors_rest ends off a
+# 16-byte boundary at degrees 1 and 3, and gives the camera fold 547 rows.
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 255, 257, 70_001])
+def test_s2_matches_plain_and_repeats(n, deg):
+    _s2_holds(*_s2_args(n, deg), n)
+
+
+# colors_rest as a contiguous view 4 or 12 bytes past a 16-byte boundary: S2
+# copies its span in and g_rest out through the 4-byte path at the ends and
+# must give the bytes it gives for the same values at an aligned address.
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("deg", [1, 2, 3, 4])
+def test_s2_takes_colors_rest_at_any_offset(deg, offset):
+    n = 1_001
+    args, bargs = _s2_args(n, deg)
+    bargs = list(bargs)
+    rest = bargs[4]
+    store = torch.full((rest.numel() + 8,), float("nan"), device="cuda")
+    view = store[offset:offset + rest.numel()].view(rest.shape)
+    view.copy_(rest)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * offset
+    aligned = _s2_holds(args, bargs, n)
+    bargs[4] = view
+    shifted = _s2_holds(args, bargs, n)
+    for a, b in zip(aligned, shifted):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 

@@ -23,7 +23,7 @@
 
 namespace splat {
 
-constexpr int kBlock = 256;   // threads a block, one splat each
+constexpr int kBlock = 256;   // threads a block of S1, one splat each (S2: kBwdBlock)
 constexpr int kCamCols = 31;  // viewmat rows 0-2 (12), full_projmat (16), cam_pos (3)
 
 // Python float constants become float32 as torch casts a scalar: from the
@@ -66,6 +66,13 @@ struct Camera {
   int deg;
 };
 
+// Component j of the point view directions start from: the camera
+// position, or (viewdirs_mode "reference") the view matrix's translation.
+__device__ __forceinline__ float view_origin(const float* view, const float* cam_pos,
+                                             int position, int j) {
+  return position ? __ldg(cam_pos + j) : __ldg(view + 4 * j + 3);
+}
+
 // The camera from device memory (every thread reads the same words).
 // cx_off / cy_off may be null (S2 needs no principal point).
 __device__ __forceinline__ Camera load_camera(const float* view, const float* proj,
@@ -83,7 +90,7 @@ __device__ __forceinline__ Camera load_camera(const float* view, const float* pr
 #pragma unroll
   for (int i = 0; i < 16; ++i) c.P[i / 4][i % 4] = __ldg(proj + i);
 #pragma unroll
-  for (int i = 0; i < 3; ++i) c.origin[i] = position ? __ldg(cam_pos + i) : c.t[i];
+  for (int i = 0; i < 3; ++i) c.origin[i] = view_origin(view, cam_pos, position, i);
   c.fx = __ldg(fx);
   c.fy = __ldg(fy);
   // tan_fov = 0.5 * size / f, which torch evaluates as reciprocal(f) * (0.5 * size).
@@ -141,67 +148,68 @@ __device__ __forceinline__ void sh_basis(float x, float y, float z, float* o) {
   }
 }
 
-// Everything the forward computes for one splat that its backward reads.
-template <int K>
-struct Fwd {
-  float m[3], s[3], q[4], ss, nrm, qn[4];
+// The forward in pieces, each the plain version's ops in its order. S1
+// calls them all; S2 calls them phase by phase (view direction and colour
+// first, then the geometry), so that what it holds live at once stays small
+// and every branch it recomputes falls as it fell in S1.
+
+// The 3D covariance: exp of the log-scales, the normalised quaternion, its
+// rotation R, M = R diag(s) and Sigma = M M^T.
+struct Cov3 {
+  float s[3], q[4], ss, nrm, qn[4];
   float R[3][3], M[3][3], Sig[3][3];
+};
+
+__device__ __forceinline__ void covariance(Cov3& c, const float* scales, const float* quats,
+                                           int i) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) c.s[j] = expf(scales[3 * i + j]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) c.q[j] = quats[4 * i + j];
+  c.ss = (c.q[0] * c.q[0] + c.q[2] * c.q[2]) + (c.q[1] * c.q[1] + c.q[3] * c.q[3]);
+  c.nrm = sqrtf(clamp_min(c.ss, F32(1e-24)));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) c.qn[j] = c.q[j] / c.nrm;
+  const float w = c.qn[0], x = c.qn[1], y = c.qn[2], z = c.qn[3];
+  c.R[0][0] = 1.0f - 2.0f * (y * y + z * z);
+  c.R[0][1] = 2.0f * (x * y - w * z);
+  c.R[0][2] = 2.0f * (x * z + w * y);
+  c.R[1][0] = 2.0f * (x * y + w * z);
+  c.R[1][1] = 1.0f - 2.0f * (x * x + z * z);
+  c.R[1][2] = 2.0f * (y * z - w * x);
+  c.R[2][0] = 2.0f * (x * z - w * y);
+  c.R[2][1] = 2.0f * (y * z + w * x);
+  c.R[2][2] = 1.0f - 2.0f * (x * x + y * y);
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) c.M[r][j] = c.R[r][j] * c.s[j];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int j = r; j < 3; ++j)
+      c.Sig[r][j] = c.Sig[j][r] =
+          (c.M[r][0] * c.M[j][0] + c.M[r][1] * c.M[j][1]) + c.M[r][2] * c.M[j][2];
+}
+
+// The mean in camera space, the clamped projection's Jacobian rows T = J W
+// (jacobian), then the blurred 2D covariance (a, b; b, c) T Sigma T^T and
+// its inverse determinant (conic2d).
+struct Proj {
   float tz;  // camera z (the depth)
   bool tz_small;
   float tzw, qxr, qyr, cxr, cyr, txc, tyc, rz, rz2, j00, j02, j11, j12;
   float t0[3], t1[3], u0[3], u1[3];
   float a, b, c, det, invd;
   bool inv;
-  float h0, h1, h3, h3a, rcp, sg, rw;
-  float dirs[3], n, nc, d[3];
-  float basis[K];  // masked above the active degree
-  float coeff[K][3];
-  float v[3];      // SH colour + 0.5
-  float sig_o;     // sigmoid(logit)
 };
 
-// The forward of splat i up to (not including) the outputs derived from it.
-template <int K>
-__device__ __forceinline__ void forward(Fwd<K>& f, const Camera& cam, int i, const float* means,
-                                        const float* scales, const float* quats, const float* dc,
-                                        const float* rest, const float* opac) {
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    f.m[j] = means[3 * i + j];
-    f.s[j] = expf(scales[3 * i + j]);
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) f.q[j] = quats[4 * i + j];
-  f.ss = (f.q[0] * f.q[0] + f.q[2] * f.q[2]) + (f.q[1] * f.q[1] + f.q[3] * f.q[3]);
-  f.nrm = sqrtf(clamp_min(f.ss, F32(1e-24)));
-#pragma unroll
-  for (int j = 0; j < 4; ++j) f.qn[j] = f.q[j] / f.nrm;
-  const float w = f.qn[0], x = f.qn[1], y = f.qn[2], z = f.qn[3];
-  f.R[0][0] = 1.0f - 2.0f * (y * y + z * z);
-  f.R[0][1] = 2.0f * (x * y - w * z);
-  f.R[0][2] = 2.0f * (x * z + w * y);
-  f.R[1][0] = 2.0f * (x * y + w * z);
-  f.R[1][1] = 1.0f - 2.0f * (x * x + z * z);
-  f.R[1][2] = 2.0f * (y * z - w * x);
-  f.R[2][0] = 2.0f * (x * z - w * y);
-  f.R[2][1] = 2.0f * (y * z + w * x);
-  f.R[2][2] = 1.0f - 2.0f * (x * x + y * y);
-#pragma unroll
-  for (int r = 0; r < 3; ++r)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) f.M[r][j] = f.R[r][j] * f.s[j];
-#pragma unroll
-  for (int r = 0; r < 3; ++r)
-#pragma unroll
-    for (int j = r; j < 3; ++j)
-      f.Sig[r][j] = f.Sig[j][r] =
-          (f.M[r][0] * f.M[j][0] + f.M[r][1] * f.M[j][1]) + f.M[r][2] * f.M[j][2];
-
+__device__ __forceinline__ void jacobian(Proj& f, const Camera& cam, const float* m) {
   // means @ W^T + t
   float mc[3];
 #pragma unroll
   for (int r = 0; r < 3; ++r)
-    mc[r] = __fmaf_rn(f.m[2], cam.W[r][2], __fmaf_rn(f.m[1], cam.W[r][1], f.m[0] * cam.W[r][0])) +
+    mc[r] = __fmaf_rn(m[2], cam.W[r][2], __fmaf_rn(m[1], cam.W[r][1], m[0] * cam.W[r][0])) +
             cam.t[r];
   f.tz = mc[2];
   f.tz_small = fabsf(f.tz) < F32(1e-8);
@@ -223,10 +231,14 @@ __device__ __forceinline__ void forward(Fwd<K>& f, const Camera& cam, int i, con
     f.t0[k] = f.j00 * cam.W[0][k] + f.j02 * cam.W[2][k];
     f.t1[k] = f.j11 * cam.W[1][k] + f.j12 * cam.W[2][k];
   }
+}
+
+__device__ __forceinline__ void conic2d(Proj& f, const Cov3& cov) {
+  const float(&Sig)[3][3] = cov.Sig;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    f.u0[k] = (f.Sig[k][0] * f.t0[0] + f.Sig[k][1] * f.t0[1]) + f.Sig[k][2] * f.t0[2];
-    f.u1[k] = (f.Sig[k][0] * f.t1[0] + f.Sig[k][1] * f.t1[1]) + f.Sig[k][2] * f.t1[2];
+    f.u0[k] = (Sig[k][0] * f.t0[0] + Sig[k][1] * f.t0[1]) + Sig[k][2] * f.t0[2];
+    f.u1[k] = (Sig[k][0] * f.t1[0] + Sig[k][1] * f.t1[1]) + Sig[k][2] * f.t1[2];
   }
   f.a = ((f.t0[0] * f.u0[0] + f.t0[1] * f.u0[1]) + f.t0[2] * f.u0[2]) + F32(kBlur);
   f.b = (f.t0[0] * f.u1[0] + f.t0[1] * f.u1[1]) + f.t0[2] * f.u1[2];
@@ -234,14 +246,19 @@ __device__ __forceinline__ void forward(Fwd<K>& f, const Camera& cam, int i, con
   f.det = f.a * f.c - f.b * f.b;
   f.inv = f.det > 0.0f;
   f.invd = 1.0f / (f.inv ? f.det : 1.0f);
+}
 
-  // [means, 1] @ P^T
+// [means, 1] @ P^T (rows 0, 1, 3) and the perspective divide's factor.
+struct Screen {
+  float h0, h1, h3, h3a, rcp, sg, rw;
+};
+
+__device__ __forceinline__ void screen(Screen& f, const Camera& cam, const float* m) {
   float h[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
     h[r] = __fmaf_rn(1.0f, cam.P[r][3],
-                     __fmaf_rn(f.m[2], cam.P[r][2],
-                               __fmaf_rn(f.m[1], cam.P[r][1], f.m[0] * cam.P[r][0])));
+                     __fmaf_rn(m[2], cam.P[r][2], __fmaf_rn(m[1], cam.P[r][1], m[0] * cam.P[r][0])));
   f.h0 = h[0];
   f.h1 = h[1];
   f.h3 = h[3];
@@ -249,33 +266,47 @@ __device__ __forceinline__ void forward(Fwd<K>& f, const Camera& cam, int i, con
   f.rcp = 1.0f / clamp_min(f.h3a, F32(1e-6));
   f.sg = sign_of(f.h3 + F32(1e-30));
   f.rw = f.rcp * f.sg;
+}
 
-  // view directions and SH colours
+// The unit view direction from the origin.
+struct View {
+  float dirs[3], n, nc, d[3];
+};
+
+__device__ __forceinline__ void view_dir(View& f, const float* origin, const float* m) {
 #pragma unroll
-  for (int j = 0; j < 3; ++j) f.dirs[j] = f.m[j] - cam.origin[j];
+  for (int j = 0; j < 3; ++j) f.dirs[j] = m[j] - origin[j];
   f.n = sqrtf((f.dirs[0] * f.dirs[0] + f.dirs[2] * f.dirs[2]) + f.dirs[1] * f.dirs[1]);
   f.nc = clamp_min(f.n, F32(1e-12));
 #pragma unroll
   for (int j = 0; j < 3; ++j) f.d[j] = f.dirs[j] / f.nc;
-  sh_basis<K>(f.d[0], f.d[1], f.d[2], f.basis);
+}
+
+// The SH bases at unit direction d, zero above the active degree.
+template <int K>
+__device__ __forceinline__ void masked_basis(const float* d, int deg, float* basis) {
+  sh_basis<K>(d[0], d[1], d[2], basis);
 #pragma unroll
   for (int k = 0; k < K; ++k)
-    if (band_of(k) > cam.deg) f.basis[k] = 0.0f;
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) f.coeff[0][ch] = dc[3 * i + ch];
-#pragma unroll
-  for (int k = 1; k < K; ++k)
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) f.coeff[k][ch] = rest[(size_t)i * 3 * (K - 1) + 3 * (k - 1) + ch];
+    if (band_of(k) > deg) basis[k] = 0.0f;
+}
+
+// The SH colour + 0.5: a fused multiply-add chain over the bases in
+// increasing k. dc holds the splat's 3 DC coefficients, rest its (K - 1) x 3
+// others (in device or shared memory).
+template <int K>
+__device__ __forceinline__ void sh_colour(const float* basis, const float* dc, const float* rest,
+                                          float* v) {
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
-    float acc = f.basis[0] * f.coeff[0][ch];
+    float acc = basis[0] * dc[ch];
 #pragma unroll
-    for (int k = 1; k < K; ++k) acc = __fmaf_rn(f.basis[k], f.coeff[k][ch], acc);
-    f.v[ch] = acc + 0.5f;
+    for (int k = 1; k < K; ++k) acc = __fmaf_rn(basis[k], rest[3 * (k - 1) + ch], acc);
+    v[ch] = acc + 0.5f;
   }
-  f.sig_o = 1.0f / (1.0f + expf(-opac[i]));
 }
+
+__device__ __forceinline__ float sigmoid(float logit) { return 1.0f / (1.0f + expf(-logit)); }
 
 // render.antialias_compensation of the conic (c*invd, -b*invd, a*invd).
 struct Comp {

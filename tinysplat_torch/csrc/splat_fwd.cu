@@ -48,12 +48,25 @@ __global__ void __launch_bounds__(kBlock) splat_fwd_kernel(FwdArgs p) {
   if (i >= p.n) return;
   const Camera cam = load_camera(p.view, p.proj, p.cam_pos, p.fx, p.fy, p.cx_off, p.cy_off,
                                  p.deg, p.width, p.proj_h, p.position);
-  Fwd<K> f;
-  forward<K>(f, cam, i, p.means, p.scales, p.quats, p.dc, p.rest, p.opac);
+  float m[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) m[j] = p.means[3 * i + j];
+  Cov3 cv;
+  covariance(cv, p.scales, p.quats, i);
+  Proj f;
+  jacobian(f, cam, m);
+  conic2d(f, cv);
+  Screen sc;
+  screen(sc, cam, m);
+  View vw;
+  view_dir(vw, cam.origin, m);
+  float basis[K], v[3];
+  masked_basis<K>(vw.d, cam.deg, basis);
+  sh_colour<K>(basis, p.dc + 3 * i, p.rest + (size_t)i * 3 * (K - 1), v);
 
   // ndc2pix: 0.5 * size * ndc + center - 0.5
-  const float x = (cam.half_w * (f.h0 * f.rw) + cam.cx) - 0.5f;
-  const float y = (cam.half_h * (f.h1 * f.rw) + cam.cy) - 0.5f;
+  const float x = (cam.half_w * (sc.h0 * sc.rw) + cam.cx) - 0.5f;
+  const float y = (cam.half_h * (sc.h1 * sc.rw) + cam.cy) - 0.5f;
   p.xys[2 * i] = x;
   p.xys[2 * i + 1] = y;
   p.depths[i] = f.tz;
@@ -87,9 +100,9 @@ __global__ void __launch_bounds__(kBlock) splat_fwd_kernel(FwdArgs p) {
 
   // maximum(rgb + 0.5, 0), NaN propagating; then the depth.
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) p.colors4[4 * i + ch] = isnan(f.v[ch]) ? f.v[ch] : fmaxf(f.v[ch], 0.0f);
+  for (int ch = 0; ch < 3; ++ch) p.colors4[4 * i + ch] = isnan(v[ch]) ? v[ch] : fmaxf(v[ch], 0.0f);
   p.colors4[4 * i + 3] = f.tz;
-  float o = f.sig_o;
+  float o = sigmoid(p.opac[i]);
   if (p.antialiased) o = o * compensation(f.a, f.b, f.c, f.invd).comp;
   p.opac_out[i] = o;
 }

@@ -106,10 +106,10 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def _entry_point(name: str, argtypes: tuple):
-    """Source ``name``'s C entry point (of the same name) with its ctypes
-    signature; the library is built on first use."""
-    fn = getattr(load(name), name)
+def function(name: str, symbol: str, argtypes: tuple):
+    """C function ``symbol`` of source ``name``'s library with its ctypes
+    signature, returning an int; the library is built on first use."""
+    fn = getattr(load(name), symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
@@ -121,7 +121,7 @@ def launch(name: str, argtypes: tuple, device, *args) -> None:
     returns cudaGetLastError())."""
     import torch
 
-    fn = _entry_point(name, argtypes)
+    fn = function(name, name, argtypes)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

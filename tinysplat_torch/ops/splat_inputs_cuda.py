@@ -21,7 +21,8 @@ Both kernels are bound by the bytes they move (reckoned in ``layer_bytes``):
 a few hundred FP32 operations a splat against ~0.3-0.5 KB of traffic. The
 camera gradients of ``pose_opt`` (``viewmat``, ``full_projmat``,
 ``cam_pos``) are sums over the splats: S2 writes one float64 partial per
-block, folded in block order, so two launches give the same bytes.
+block and column, and a fold kernel sums each column in a fixed order, so
+two launches give the same bytes. ``bwd_geometry`` gives S2's launch shape.
 
 Every wrapper launches its kernel on CUDA tensors (counted in its
 ``launches``) or raises; CPU tensors run the plain version.
@@ -59,7 +60,10 @@ BOUNDARY, BOUNDARY_PX = 1e-3, 1e-3
 # The camera gradient's columns: viewmat rows 0-2 (12), full_projmat (16),
 # cam_pos (3).
 CAM_COLS = 31
-BLOCK = 256  # threads a block of S1 and S2 (one splat each)
+# S2's launch (csrc/splat_bwd.cu kBwdBlock, kFoldThreads): BWD_BLOCK threads
+# a block, one splat each; the camera gradient's fold runs one block of
+# FOLD_THREADS threads a column.
+BWD_BLOCK, FOLD_THREADS = 128, 256
 
 
 class SplatLayout(NamedTuple):
@@ -70,6 +74,24 @@ class SplatLayout(NamedTuple):
     tile_size: int = 16
     viewdirs_mode: str = "reference"
     antialiased: bool = False
+
+
+class BwdGeometry(NamedTuple):
+    """S2's launch at n splats and k SH bases."""
+
+    blocks: int  # blocks of BWD_BLOCK threads; with cam_grad, each column's partial rows
+    smem_bytes: int  # dynamic shared memory a block: its colors_rest span, +16 to align
+    fold_run: int  # partial rows each fold thread sums, in order
+
+
+def bwd_geometry(n: int, k_bases: int) -> BwdGeometry:
+    """S2's launch geometry (the kernel refuses any other): one thread a
+    splat; a block stages its splats' ``colors_rest`` rows (k - 1 bases of 3
+    floats) in shared memory, none at k = 1; fold thread t sums partial rows
+    [t run, (t + 1) run) of each column."""
+    blocks = -(-n // BWD_BLOCK)
+    smem = BWD_BLOCK * (k_bases - 1) * 3 * 4 + 16 if k_bases > 1 else 0
+    return BwdGeometry(blocks, smem, -(-blocks // FOLD_THREADS))
 
 
 class SplatOutputs(NamedTuple):
@@ -447,8 +469,9 @@ _SIGNATURES = {
     # means, scales, quats, dc, rest, opacities, viewmat, projmat, cam_pos, fx, fy,
     # degree, g_xys, g_depths, g_conics, g_colors4, g_opacities, n, k, width,
     # proj_height, position, antialiased, g_means, g_scales, g_quats,
-    # g_dc, g_rest, g_opacities_out, cam_grad, partials, g_cam, stream
-    "splat_bwd": (_P,) * 17 + (_I,) * 6 + (_P,) * 6 + (_I,) + (_P,) * 3,
+    # g_dc, g_rest, g_opacities_out, cam_grad, partials, g_cam, blocks, smem_bytes,
+    # fold_run, stream
+    "splat_bwd": (_P,) * 17 + (_I,) * 6 + (_P,) * 6 + (_I,) + (_P,) * 2 + (_I,) * 3 + (_P,),
 }
 
 
@@ -515,8 +538,9 @@ def splat_bwd(means, scales, quats, colors_dc, colors_rest, opacities, viewmat, 
 
     Launches S2 on CUDA tensors (``splat_bwd.launches`` counts the launches)
     and runs ``splat_bwd_plain`` on CPU tensors. With ``cam_grad`` S2 also
-    writes one float64 partial of the camera gradient per block and folds
-    them in block order (a second, one-block kernel of the same launch).
+    writes one float64 partial of each camera column per block and folds
+    each column in a fixed order (a second kernel of the same launch, one
+    block a column).
     """
     n = means.shape[0]
     if _device_kind(means, "splat_bwd") == "cpu":
@@ -535,21 +559,35 @@ def splat_bwd(means, scales, quats, colors_dc, colors_rest, opacities, viewmat, 
                                                     fx, fy, active_degree)
     gs = [x.contiguous() for x in (g_xys, g_depths, g_conics, g_colors4, g_opacities)]
     outs = [torch.empty_like(x) for x in ins]
-    blocks = max(1, -(-n // BLOCK))
-    partials = torch.empty((blocks, CAM_COLS) if cam_grad else (1,), dtype=torch.float64,
-                           device=means.device)
+    geo = bwd_geometry(n, kb)
+    partials = torch.empty((CAM_COLS, geo.blocks) if cam_grad and n else (1,),
+                           dtype=torch.float64, device=means.device)
     g_cam = means.new_empty((CAM_COLS,) if cam_grad else (1,))
     _launch("splat_bwd", means.device, *(x.data_ptr() for x in ins),
             *(x.data_ptr() for x in (view, proj, pos, fx_t, fy_t, deg)),
             *(x.data_ptr() for x in gs), n, kb, layout.img_width, layout.proj_height,
             int(layout.viewdirs_mode == "position"), int(layout.antialiased),
             *(x.data_ptr() for x in outs), int(cam_grad),
-            partials.data_ptr(), g_cam.data_ptr())
+            partials.data_ptr(), g_cam.data_ptr(), *geo)
     splat_bwd.launches += 1
     return (*outs, g_cam if cam_grad else None)
 
 
 splat_bwd.launches = 0
+
+
+def bwd_occupancy(k_bases: int, device="cuda") -> dict:
+    """S2's resources on ``device``'s card at k SH bases, as the CUDA runtime
+    reports them for the built kernel: registers and local (spill) bytes a
+    thread, shared memory a block, and blocks resident an SM."""
+    fn = _build.function("splat_bwd", "splat_bwd_info", (_I, _I, _P))
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = fn(k_bases, bwd_geometry(1, k_bases).smem_bytes, out)
+    if err != 0:
+        raise RuntimeError(f"splat_bwd_info failed: CUDA error {err}")
+    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2],
+            "blocks_per_sm": out[3], "threads": out[4]}
 
 
 def _column_err(got: torch.Tensor, ref: torch.Tensor, scale=None):
@@ -634,12 +672,13 @@ def layer_bytes(n: int, k_bases: int, cam_grad: bool = False):
     the logit and alive (1 B) and writes xys, depth, radius, conic, tile
     count, valid (1 B), colors4 and opacity. S2 reads those inputs but alive
     and the cotangents (xys, depth, conic, colors4, opacity) and writes the
-    six gradients (+ a float64 row of 31 per block with ``cam_grad``)."""
+    six gradients (+ 31 float64 partials per block, written and read, with
+    ``cam_grad``)."""
     ins = 4 * (3 + 3 + 4 + 3 * k_bases + 1)
     s1 = n * (ins + 1 + 4 * (2 + 1 + 1 + 3 + 1 + 4 + 1) + 1)
     s2 = n * (2 * ins + 4 * (2 + 1 + 3 + 4 + 1))
     if cam_grad:
-        s2 += -(-n // BLOCK) * CAM_COLS * 8 * 2
+        s2 += bwd_geometry(n, k_bases).blocks * CAM_COLS * 8 * 2
     return s1, s2
 
 
