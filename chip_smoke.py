@@ -224,13 +224,35 @@ exits non-zero):
    Every earlier phase runs S1 and S2 too: each counted window expects one
    S1 per K1 launch and one S2 per K2 launch.
 
+18. The binning kernels B1-B4 (``bin_count``, ``bin_emit``, ``radix_hist``,
+   ``radix_scatter``, ``tinysplat_torch/ops/binning_cuda.py``) on the bench
+   scene (524,288 slots, 1066x1600): (a) every stage against its plain
+   version on the card, fed the plain version's output of the stage before,
+   and the whole ``DenseBins`` against ``bin_splats_dense_plain``, bit for
+   bit with the counters equal, at 16x64 tiles with the bench budgets, in
+   phase 7's grown 1,048,576 slots, at 8x8 and 32x32 (budgets that hold
+   every entry) and with the entries cut at half, the spans at a third and
+   ``max_per_tile`` 128; (b) two runs of the kernels the same bytes; (c)
+   ``tile_inputs`` under ``torch.cuda.set_sync_debug_mode("error")`` (must
+   raise nothing), and whether a whole frame does (printed with the first
+   op that syncs); (d) B1-B4's device times beside their byte bounds, their
+   plain versions' and ``torch.sort(stable=True)``'s on the same tile ids
+   (B3 / B4's library yardstick), the radix sort and the whole binning; (e)
+   the ``tile_inputs`` layer, a frame and a bare "scatter" step through the
+   kernels and the plain way (``bin_splats_dense_plain`` swapped into
+   ``tile_inputs``), in turns kernels, plain, plain, kernels, the launches
+   counted. Every earlier counted window expects B1 and B2 once per
+   binning (once per K1 launch, plus scaling_bench's direct binnings) and
+   B3 and B4 once per digit pass: two a binning at every full-size grid,
+   one at 128x128 and 240x180 (``check_launches``).
+
 Phase 9 ends with the ``evaluate`` CLI on its step-12 checkpoint (every
 second view), whose per-view PSNR must equal ``Trainer.evaluate``'s to
 1e-3 dB.
 
-The line before the last is the kernels' JSON record (K1-K3's, S1's and
-S2's launches sum the counted windows of phases 6, 10, 11, 12, 13, 14, 15,
-16 and 17, ``launches_by_phase``; phase 11's sum the four ranks' training
+The line before the last is the kernels' JSON record (K1-K3's, S1's, S2's
+and B1-B4's launches sum the counted windows of phases 6, 10, 11, 12, 13,
+14, 15, 16, 17 and 18, ``launches_by_phase``; phase 11's sum the four ranks' training
 windows and phase 14's include scaling_bench's nine ranks); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -394,6 +416,9 @@ SPLAT_COMBOS = [(deg, aa, mode) for deg in (0, 3) for aa in (False, True)
                 for mode in ("reference", "position")]
 SPLAT_FWD_FLOP, SPLAT_BWD_FLOP = 500, 1500
 SPLAT_REPS = 5  # layer calls, frames and steps a way in phase 17 (d)
+# B3 / B4's digit passes a binning at every full-size tile grid here (256 to
+# 65,535 tiles: ceil(log2(tiles + 1)) of 9-16 bits); checked in phase 18.
+RADIX_PASSES = 2
 
 
 def compare_kernel(torch, rc, args, label):
@@ -879,9 +904,8 @@ def trainer_phase(torch, rc, tt, Config, views, gts, serve_state, deg, bg):
         print(f"  launches in the {TRAINER_STEPS} steps: {launches}; losses "
               f"{[round(x, 5) for x in losses]}; entries dropped by binning (total, tile) "
               f"{drops}; host s per step {[round(x, 3) for x in step_s]}", flush=True)
-        if any(n != TRAINER_STEPS for n in launches.values()):
-            raise AssertionError(f"expected {TRAINER_STEPS} K1, K2 and K3 launches, counted "
-                                 f"{launches}")
+        check_launches(launches, {"composite_fwd": TRAINER_STEPS, "composite_bwd": TRAINER_STEPS,
+                                  "segsum": TRAINER_STEPS}, f"phase 7 ({TRAINER_STEPS} steps)")
         if not all(np.isfinite(losses)):
             raise AssertionError(f"non-finite trainer losses {losses}")
         for h in tr.densify_history:
@@ -1035,19 +1059,31 @@ def probes_phase(torch):
 
 
 def counted_kernels(rc):
-    """The kernel wrappers whose launches the script counts: K1-K3 and the
-    splat-input kernels S1 and S2."""
+    """The kernel wrappers whose launches the script counts: K1-K3, the
+    splat-input kernels S1 and S2 and the binning kernels B1-B4."""
+    from tinysplat_torch.ops import binning_cuda as bc
     from tinysplat_torch.ops import splat_inputs_cuda as si
 
-    return (rc.composite_fwd, rc.composite_bwd, rc.segsum, si.splat_fwd, si.splat_bwd)
+    return (rc.composite_fwd, rc.composite_bwd, rc.segsum, si.splat_fwd, si.splat_bwd,
+            bc.bin_count, bc.bin_emit, bc.radix_hist, bc.radix_scatter)
 
 
 def check_launches(got, want, label):
     """Raise unless each kernel's launch count is the expected one. Unless
     ``want`` names them, S1 and S2 are expected as often as K1 and K2: every
     render runs ``splat_inputs`` (S1) once before K1, and every backward
-    through K1 continues through S2 once."""
-    want = {"splat_fwd": want["composite_fwd"], "splat_bwd": want["composite_bwd"], **want}
+    through K1 continues through S2 once. B1 and B2 run once a binning:
+    once a K1 launch (every render's ``tile_inputs`` bins once), or
+    ``want["bins"]`` times where a window also bins outside a render; B3 and
+    B4 once per digit pass of each binning: ``RADIX_PASSES`` (every
+    full-size tile grid here) a binning, or ``want["radix"]`` in all where a
+    window's grids differ."""
+    want = dict(want)
+    bins = want.pop("bins", want["composite_fwd"])
+    radix = want.pop("radix", RADIX_PASSES * bins)
+    want = {"splat_fwd": want["composite_fwd"], "splat_bwd": want["composite_bwd"],
+            "bin_count": bins, "bin_emit": bins, "radix_hist": radix, "radix_scatter": radix,
+            **want}
     if got != want:
         raise AssertionError(f"{label}: expected launches {want}, counted {got}")
 
@@ -1515,8 +1551,8 @@ def mesh_phase(torch, rc, tt, Config, gts, device="cuda", height=HEIGHT, width=W
             loss_density.append(float(tr.last_metrics.get("loss_density", float("nan"))))
         launches = {k.__name__: k.launches for k in kernels}
         if cuda:
-            check_launches(launches, {k.__name__: MESH_STEPS for k in kernels},
-                           f"phase 10 ({MESH_STEPS} steps)")
+            check_launches(launches, {"composite_fwd": MESH_STEPS, "composite_bwd": MESH_STEPS,
+                                      "segsum": MESH_STEPS}, f"phase 10 ({MESH_STEPS} steps)")
         objective["before the first refine"] = mesh_objective(
             torch, tt, load_model(ref_path, device=device), cfg, cams, device)
         objective["end"] = mesh_objective(torch, tt, tr.state, cfg, cams, device)
@@ -1814,8 +1850,9 @@ def shard_phase(torch, Config):
     print(f"  MeshTrainer, {SHARD_STEPS} steps: K1/K2/K3 launches per rank {launches}; "
           f"densify (step, cloned, capacity before, after) {grown}; peak GiB per rank "
           f"{[round(r['peak_gib'], 2) for r in ranks]}", flush=True)
-    if any(v != SHARD_STEPS for r in launches for v in r.values()):
-        raise AssertionError(f"expected {SHARD_STEPS} launches of K1, K2, K3 on every rank")
+    for i, got in enumerate(launches):
+        check_launches(got, {"composite_fwd": SHARD_STEPS, "composite_bwd": SHARD_STEPS,
+                             "segsum": SHARD_STEPS}, f"phase 11 rank {i}")
     if ranks[0]["capacity"] != 3 * N_SPLATS or one["capacity"] != 3 * N_SPLATS:
         raise AssertionError("the densify at step 4 did not grow the capacity to 786,432")
     for r in ranks:
@@ -2094,8 +2131,10 @@ def diffusion_phase(torch, rc, tt, Config, gts):
         tiny_s = time.perf_counter() - t0
         launches = {k.__name__: k.launches for k in kernels}
         n_refresh_views = sum(1 for _ in refresh_log) * 2
+        # The tiny refresh renders 16 tiles of 16x64 at 128x128: one digit pass.
         want = {"composite_fwd": DIFF_STEPS + n_refresh_views + len(tiny_cams),
-                "composite_bwd": DIFF_STEPS, "segsum": DIFF_STEPS}
+                "composite_bwd": DIFF_STEPS, "segsum": DIFF_STEPS,
+                "radix": RADIX_PASSES * (DIFF_STEPS + n_refresh_views) + len(tiny_cams)}
         print(f"  launches in the {DIFF_STEPS} steps and the tiny refresh: {launches} "
               f"(K1: {DIFF_STEPS} steps + {n_refresh_views} SD refresh renders + "
               f"{len(tiny_cams)} tiny refresh renders); cameras per step {n_cams}; losses "
@@ -2285,6 +2324,9 @@ def quality_phase(torch, rc):
     def run(label, fn, want):
         return run_counted(torch, rc, total, "phase 13", label, fn, want)
 
+    def one_pass(want):  # grids under 256 tiles: one digit pass a binning
+        return dict(want, radix=want["composite_fwd"])
+
     saved_tmp = tempfile.tempdir
     with tempfile.TemporaryDirectory() as tmp:
         tempfile.tempdir = tmp  # quality_bench's checkpoint lands here
@@ -2318,7 +2360,8 @@ def quality_phase(torch, rc):
             ph = {}
             run("(b) train_diffusion_prior", lambda: train_diffusion_prior.main(
                 PRIOR_ARGS + ["--out-dir", prior_dir], history=ph),
-                lambda o: {"composite_fwd": 96, "composite_bwd": 0, "segsum": 0})
+                # 128x128: 64 tiles of 16 px
+                lambda o: one_pass({"composite_fwd": 96, "composite_bwd": 0, "segsum": 0}))
             vl, dl = ph["vae_loss"], ph["denoiser_loss"]
             print(f"  (b) GT dropped {sum(ph['gt_dropped'])} over {len(ph['gt_dropped'])} views "
                   f"at 128x128 ({ph['render_s']:.2f} s); VAE {len(vl)} steps, "
@@ -2348,10 +2391,11 @@ def quality_phase(torch, rc):
             ah = {}
             ab = run("(c) diffusion_ab", lambda: diffusion_ab.main(
                 AB_ARGS + ["--prior-dir", prior_dir, "--out", os.path.join(tmp, "ab.json")],
-                history=ah), lambda o: {  # K1: GT, each arm's steps and evals, refresh renders
+                # K1: GT, each arm's steps and evals, refresh renders
+                history=ah), lambda o: one_pass({
                     "composite_fwd": 12 + 2 * (o["iters"] + o["eval_views"])
                     + len(ah["guided"]._diffusion_guidance.cameras),
-                    "composite_bwd": 2 * o["iters"], "segsum": 0})
+                    "composite_bwd": 2 * o["iters"], "segsum": 0}))
             synth = ah["guided"]._diffusion_guidance.cameras
             print(f"  (c) plain {ab['plain']}, guided {ab['guided']}: delta {ab['value']} dB; "
                   f"{len(synth)} synthetic views at {synth[0].width}x{synth[0].height} in the "
@@ -2369,8 +2413,9 @@ def quality_phase(torch, rc):
             shutil.copytree(fixture, scene_dir)
             qr = run("(d) quality_real", lambda: quality_real.main(
                 REAL_ARGS + ["--scene-dir", scene_dir, "--out", os.path.join(tmp, "real.json")]),
-                lambda o: {"composite_fwd": o["iters"] + 2 * (len(o["eval_history"]) + 1),
-                           "composite_bwd": o["iters"], "segsum": 0})
+                lambda o: one_pass({  # 240x180: 48 tiles of 16x64
+                    "composite_fwd": o["iters"] + 2 * (len(o["eval_history"]) + 1),
+                    "composite_bwd": o["iters"], "segsum": 0}))
             after = sorted((os.path.relpath(os.path.join(d, f), fixture),
                             os.path.getsize(os.path.join(d, f)))
                            for d, _, files in os.walk(fixture) for f in files)
@@ -2420,10 +2465,20 @@ def scaling_model_launches(o):
     gradient (2 warm-up + --iters)."""
     from tinysplat_torch.scripts import scaling_model
 
-    it, H = int(SM_ARGS[SM_ARGS.index("--iters") + 1]), o["resolution"][0]
+    from tinysplat_torch.ops.binning_cuda import radix_passes
+
+    it, (H, W) = int(SM_ARGS[SM_ARGS.index("--iters") + 1]), o["resolution"]
     bands = [t for t in scaling_model.BANDS if (H // 16) % t == 0]
     k2 = 2 * (1 + it) + sum(t * (2 + max(it // 2, 8)) + (1 + it) + (2 + it) for t in bands)
-    return {"composite_fwd": k2 + 1 + sum(bands), "composite_bwd": k2, "segsum": 0}
+    # Digit passes: render's 16x16 tiles (the probes and gradients), the
+    # steps' 16x64 (Config's tile_x), each at its band's height.
+    p16 = lambda h: radix_passes((W // 16) * (h // 16))  # noqa: E731
+    p64 = lambda h: radix_passes(-(-W // 64) * (h // 16))  # noqa: E731
+    radix = 2 * (1 + it) * p64(H) + p16(H) + sum(
+        t * (3 + max(it // 2, 8)) * p16(H // t) + (1 + it) * p64(H // t) + (2 + it) * p16(H // t)
+        for t in bands)
+    return {"composite_fwd": k2 + 1 + sum(bands), "composite_bwd": k2, "segsum": 0,
+            "radix": radix}
 
 
 def tools_phase(torch, rc):
@@ -2481,13 +2536,26 @@ def tools_phase(torch, rc):
 
         # (d) band spread + 8 ranks sharing the card vs a 1-rank world.
         hist = {}
+        # Part 1 bins only (two bands of 16x16 tiles a camera and band), and
+        # its steps run in the ranks (16x64 tiles, a band of 1 / N_TILE of
+        # the image on the mesh's ranks, the whole image in the 1-rank world).
+        from tinysplat_torch.ops.binning_cuda import radix_passes
+
+        def sb_part1(o):
+            (h, w), cams = o["resolution"], len(hist["band_counts"])
+            bins = cams * scaling_bench.N_TILE * 2
+            return dict(fwd_bwd(0), bins=bins, radix=bins * radix_passes(
+                (w // 16) * (h // scaling_bench.N_TILE // 16)))
+
         sb = run("(d) scaling_bench", lambda: scaling_bench.main(
-            ["--out", os.path.join(tmp, "scaling.json")], history=hist),
-            lambda o: fwd_bwd(0))  # part 1 bins only; the steps run in the ranks
+            ["--out", os.path.join(tmp, "scaling.json")], history=hist), sb_part1)
         ranks = hist["ranks"] + hist["ranks_1"]
+        (sb_h, sb_w), steps = sb["resolution"], 1 + scaling_bench.STEP_ITERS
         for r in ranks:
-            check_launches(r["launches"], fwd_bwd(1 + scaling_bench.STEP_ITERS),
-                           f"phase 14 (d) rank {r['rank']} of {len(hist['ranks'])}")
+            band = sb_h // (scaling_bench.N_TILE if r in hist["ranks"] else 1)
+            check_launches(r["launches"], dict(fwd_bwd(steps), radix=steps * radix_passes(
+                -(-sb_w // 64) * (band // 16))),
+                f"phase 14 (d) rank {r['rank']} of {len(hist['ranks'])}")
             for name, n in r["launches"].items():
                 total[name] += n
         with open(os.path.join(HERE, "SCALING_r03.json")) as f:
@@ -2611,7 +2679,7 @@ def full_budgets(rc, s, radii, tile_size, tile_x):
                                conics=s.proj.conics, opacities=s.opacities, tile_size_x=tx)
     if bins.dup_overflow or bins.tile_overflow:
         raise AssertionError(f"{tile_size}x{tx} tiles: the sizing caps dropped entries")
-    total, deepest = bins.total_intersections, int(bins.counts.max())
+    total, deepest = int(bins.total_intersections), int(bins.counts.max())
     dup = -(-int(total * TILE_HEADROOM) // 1024) * 1024
     return (dict(dup_capacity=dup, span_capacity=dup,
                  max_per_tile=-(-int(deepest * TILE_HEADROOM) // 128) * 128), total, deepest)
@@ -2991,6 +3059,245 @@ def splat_phase(torch, rc, tt, state, cam, train, opt, views, gts, cfg):
     return rows, launches
 
 
+
+def plain_binning(xys, depths, radii, valid, tiles_x, tiles_y, tile_size=16, chunk=128,
+                  dup_capacity=0, max_per_tile=0, span_capacity=0, conics=None,
+                  opacities=None, row_stride=1, row_offset=0, tile_size_x=0):
+    """``bin_splats_dense`` through its plain version on any device (phase
+    18 (e) swaps it into ``tile_inputs`` for the plain way)."""
+    from tinysplat_torch.ops import binning
+
+    geom = binning.BinGeometry(tiles_x, tiles_y, tile_size, tile_size_x or tile_size,
+                               row_stride, int(row_offset))
+    caps = binning.budgets(xys.shape[0], tiles_x * tiles_y, chunk, dup_capacity, max_per_tile,
+                           span_capacity)
+    return binning.bin_splats_dense_plain(xys, depths, radii, valid, geom, caps, chunk, conics,
+                                          opacities)
+
+
+def bin_bytes(n, n_valid, n_emitting, entries, blocks, num_tiles):
+    """Bytes B1-B4 must move at ``n`` depth ranks, ``n_valid`` of them valid
+    splats and ``n_emitting`` of them with kept entries, and ``entries``
+    kept entries (each input read once, each output written once), one
+    digit pass of B3 and B4 (the first: B3 also writes full_counts; B4
+    writes keys and values). B1 reads every rank's order and valid flag and
+    only a valid splat's position, radius, conic and opacity; B2 reads every
+    rank's row count and only an emitting rank's splat, entry count and
+    scans."""
+    splat = 8 + 4 + 12 + 4  # xys, radius, conic, opacity
+    hist = 256 * blocks * 4
+    return {"bin_count": n * (4 + 1 + 8) + n_valid * splat,
+            "bin_emit": n * 4 + n_emitting * (4 + splat + 4 + 8 + 8) + entries * 8 + 8 + 12,
+            "radix_hist": entries * 4 + hist + num_tiles * 4,
+            "radix_scatter": entries * 8 + 2 * hist + entries * 8}
+
+
+def binning_phase(torch, rc, tt, state, cam, train, opt, views, gts, cfg):
+    """Phase 18: see the module docstring. Returns B1-B4's rows of the
+    kernels' JSON line (without launches) and the launches of (e)'s counted
+    run through the kernels."""
+    from tinysplat_torch.ops import binning
+    from tinysplat_torch.ops import binning_cuda as bc
+    from tinysplat_torch.probes import timed_ms
+    from tinysplat_torch.render import render, splat_inputs
+
+    phase_t0 = time.perf_counter()
+    print(f"phase 18: the binning kernels B1-B4 ({gpu_name_and_limit()}), {N_SPLATS} splats "
+          f"in {state.capacity} slots at {HEIGHT}x{WIDTH}, and in {SPLAT_CAPACITY} slots",
+          flush=True)
+    deg = state.active_sh_degree
+    bg = torch.zeros(3, device="cuda")
+    big, big_alive = pad_params(torch, state.params, state.alive, SPLAT_CAPACITY)
+    with torch.no_grad():
+        s = splat_inputs(state.params, state.alive, cam, HEIGHT, WIDTH, deg, bg)
+        s_big = splat_inputs(big, big_alive, cam, HEIGHT, WIDTH, deg, bg)
+
+    def layer(sp, th, tx, **caps):
+        tiles_x, tiles_y = -(-WIDTH // tx), -(-HEIGHT // th)
+        geom = binning.BinGeometry(tiles_x, tiles_y, th, tx)
+        budgets = binning.budgets(sp.xys.shape[0], tiles_x * tiles_y, 128, **caps)
+        return (sp.xys, sp.proj.depths, sp.proj.radii, sp.valid, geom, budgets, 128,
+                sp.proj.conics, sp.opacities)
+
+    bench = {k: v for k, v in RENDER_KW.items() if k != "tile_x"}
+    total16 = int(rc.bin_splats_dense(
+        s.xys, s.proj.depths, s.proj.radii, s.valid, -(-WIDTH // 64), -(-HEIGHT // 16),
+        conics=s.proj.conics, opacities=s.opacities, tile_size_x=64, **bench).num_entries)
+    cases = {"16x64, bench budgets": layer(s, 16, 64, **bench),
+             f"16x64, {SPLAT_CAPACITY} slots": layer(s_big, 16, 64, **bench)}
+    for ts in (8, 32):
+        caps = full_budgets(rc, s, s.proj.radii, ts, 0)[0]
+        cases[f"{ts}x{ts}"] = layer(s, ts, ts, **caps)
+    # Forced overflows at 16x64: the entry cut inside the entries, the span
+    # cut inside the spans, and 128 entries a tile.
+    cases["16x64, dup_capacity cut"] = layer(s, 16, 64, **dict(
+        bench, dup_capacity=total16 // 2 // 128 * 128 + 128))
+    cases["16x64, span_capacity cut"] = layer(s, 16, 64, **dict(bench, span_capacity=total16 // 3))
+    cases["16x64, max_per_tile 128"] = layer(s, 16, 64, **dict(bench, max_per_tile=128))
+
+    # (a) + (b): every stage and the whole layer bit for bit, twice the same bytes.
+    for label, args in cases.items():
+        rep = bc.stage_mismatch(*args)
+        geom, caps = args[4], args[5]
+        print(f"  (a) {label} ({geom.tiles_x}x{geom.tiles_y} tiles, "
+              f"{bc.radix_passes(geom.tiles_x * geom.tiles_y)} digit passes, budgets "
+              f"{caps._asdict()}): differing elements B1 {rep['bin_count']}, B2 "
+              f"{rep['bin_emit']}, B3 {rep['radix_hist']}, B4 {rep['radix_scatter']}, sort vs "
+              f"a stable sort {rep['sorted_vs_stable_sort']}, whole layer {rep['whole']}; (b) "
+              f"twice the same bytes {rep['same_bytes']}; counters {rep['counters']}",
+              flush=True)
+        if rep["bin_count_first"]:
+            print(f"      B1's first differing (rank, splat): {rep['bin_count_first']}",
+                  flush=True)
+        if not rep["ok"]:
+            raise AssertionError(f"phase 18 {label}: the binning kernels disagree: {rep}")
+        c = rep["counters"]
+        if "cut" in label and not c["dup_overflow"]:
+            raise AssertionError(f"phase 18 {label}: the cut dropped nothing: {c}")
+        if "max_per_tile" in label and not c["tile_overflow"]:
+            raise AssertionError(f"phase 18 {label}: no tile overflowed: {c}")
+
+    # (c) tile_inputs (and, for the record, a whole frame) with no host sync.
+    ti_args = (s.xys, s.proj.depths, s.proj.radii, s.proj.conics, s.colors4, s.opacities,
+               s.valid, HEIGHT, WIDTH)
+    ref = rc.tile_inputs(*ti_args, **RENDER_KW)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ti = rc.tile_inputs(*ti_args, **RENDER_KW)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not all(torch.equal(a, b) for a, b in zip(ti.bins, ref.bins)):
+        raise AssertionError("phase 18 (c): tile_inputs under the sync check binned otherwise")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            render(state.params, state.alive, cam, HEIGHT, WIDTH, deg, bg, **RENDER_KW)
+        frame_sync = "none"
+    except RuntimeError as err:
+        frame_sync = str(err).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"  (c) tile_inputs made no host sync (torch.cuda.set_sync_debug_mode('error')); a "
+          f"whole frame through render(): first sync {frame_sync!r}", flush=True)
+
+    # (d) device times at the bench frame's shapes against their bounds.
+    xys, depths, radii, valid, geom, caps, _, conics, opac = cases["16x64, bench budgets"]
+    n, num_tiles = xys.shape[0], geom.tiles_x * geom.tiles_y
+    order = binning.depth_order(depths, valid).to(torch.int32)
+    rows, ents = bc.bin_count(order, xys, radii, valid, geom, conics, opac)
+    scans = (torch.cumsum(rows, 0), torch.cumsum(ents, 0))
+    emit_args = (order, xys, radii, valid, geom, caps, rows, ents, *scans, conics, opac)
+    keys, vals, counters = bc.bin_emit(*emit_args)
+    m, blocks = int(counters[0]), bc.sort_blocks(caps.dup_capacity)
+    full = torch.zeros(num_tiles, dtype=torch.int32, device="cuda")
+    hist = bc.radix_hist(keys, counters, 0, blocks, full)
+    incl = torch.cumsum(hist, 0, dtype=torch.int32)
+    outs = [torch.empty_like(keys) for _ in range(2)]
+
+    ms = {
+        "bin_count": timed_ms(lambda: bc.bin_count(order, xys, radii, valid, geom, conics, opac),
+                              20, device_only=True),
+        "bin_emit": timed_ms(lambda: bc.bin_emit(*emit_args), 20, device_only=True),
+        "radix_hist": timed_ms(lambda: bc.radix_hist(keys, counters, 0, blocks, full), 20,
+                               device_only=True),
+        "radix_scatter": timed_ms(lambda: bc.radix_scatter(keys, vals, hist, incl, counters, 0,
+                                                           *outs), 20, device_only=True)}
+    plain = {
+        "bin_count": timed_ms(lambda: bc.bin_count_plain(order, xys, radii, valid, geom, conics,
+                                                         opac), 3, device_only=True),
+        "bin_emit": timed_ms(lambda: bc.bin_emit_plain(*emit_args[:6], conics, opac), 3,
+                             device_only=True),
+        "radix_hist": timed_ms(lambda: bc.radix_hist_plain(keys, counters, 0, blocks), 3,
+                               device_only=True),
+        "radix_scatter": timed_ms(lambda: bc.radix_scatter_plain(
+            keys, vals, hist, incl, counters, 0, *outs), 3, device_only=True)}
+    # B3 + B4's function in one library call: a stable sort of the tile ids.
+    lib_sort = timed_ms(lambda: torch.sort(keys[:m], stable=True), 20, device_only=True)
+    sort_all = timed_ms(lambda: bc.sort_by_tile(keys.clone(), vals.clone(), counters, num_tiles,
+                                                torch.zeros_like(full), outs[1]), 20,
+                        device_only=True)
+    layer_ms = timed_ms(lambda: rc.bin_splats_dense(
+        xys, depths, radii, valid, geom.tiles_x, geom.tiles_y, conics=conics, opacities=opac,
+        tile_size_x=64, **bench), 20, device_only=True)
+    spans = int(rows.long().sum())
+    first_span, first_entry = scans[0] - rows, scans[1] - ents
+    emitting = int(((rows > 0) & (first_span < caps.span_capacity)
+                    & (first_entry < caps.dup_capacity)).sum())
+    nbytes_ = bin_bytes(n, int(valid.sum()), emitting, m, blocks, num_tiles)
+    # FP32 work of B1 / B2: ~30 operations a valid (B1) or emitting (B2)
+    # splat (the rectangle, the ellipse's log and square roots) and ~40 a
+    # span (two band maxima).
+    kept_spans = min(spans, caps.span_capacity)
+    ops = {"bin_count": 30 * int(valid.sum()) + 40 * spans,
+           "bin_emit": 30 * emitting + 40 * kept_spans}
+    rows_out = {}
+    for name in ("bin_count", "bin_emit", "radix_hist", "radix_scatter"):
+        bytes_ms = nbytes_[name] / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops.get(name, 0) / FP32_FLOPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        by = "bytes" if bytes_ms >= ops_ms else "operations"
+        lib = lib_sort if name in ("radix_hist", "radix_scatter") else None
+        print(f"  (d) {name}: {ms[name]:.4f} ms (median of 20, device time); plain version "
+              f"{plain[name]:.3f} ms; bound {bound:.4f} ms by {by} ({nbytes_[name]} bytes -> "
+              f"{bytes_ms:.4f} ms; {ops.get(name, 0)} FP32 operations -> {ops_ms:.5f} ms), "
+              f"{bound / ms[name]:.1%} of it" + (f"; torch.sort(stable=True) of the "
+                                                  f"{m} tile ids {lib:.4f} ms" if lib else ""),
+              flush=True)
+        rows_out[name] = {"ms": ms[name], "plain_ms": plain[name], "bound_ms": bound,
+                          "bound_by": by, "library_ms": lib, "max_abs_err": 0.0}
+    print(f"  (d) {n} slots ({int(valid.sum())} valid, {emitting} emitting), {spans} spans, "
+          f"{m} entries, {num_tiles} tiles: the radix sort "
+          f"({bc.radix_passes(num_tiles)} passes of B3 + scan + B4) {sort_all:.4f} ms; the "
+          f"whole binning (depth sort, B1, scans, B2, the radix sort, tile starts) "
+          f"{layer_ms:.4f} ms (device time)", flush=True)
+
+    # (e) the layer, a frame and a bare "scatter" step through the kernels and
+    # the plain way (bin_splats_dense_plain swapped into tile_inputs), in turns.
+    kernels = counted_kernels(rc)
+    step_fn = tt.make_train_step(cfg, HEIGHT, WIDTH)
+
+    def one_way(label, step):
+        layer_t = timed_ms(lambda: rc.tile_inputs(*ti_args, **RENDER_KW), SPLAT_REPS)
+        frames = []
+        for _ in range(SPLAT_REPS):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            with torch.no_grad():
+                render(state.params, state.alive, cam, HEIGHT, WIDTH, deg, bg, **RENDER_KW)
+            end.record()
+            end.synchronize()
+            frames.append(start.elapsed_time(end))
+        nonlocal train
+        train, log = train_steps(torch, step_fn, train, opt, views, gts, step, SPLAT_REPS)
+        check_steps(torch, log, f"phase 18 {label}")
+        step_ms = statistics.median(m for _, m, _, _ in log)
+        print(f"  (e) {label}: tile_inputs layer {layer_t:.3f} ms, frame median "
+              f"{statistics.median(frames):.3f} ms, bare step median {step_ms:.3f} ms "
+              f"(CUDA events, {SPLAT_REPS} each)", flush=True)
+
+    kernel_binning = rc.bin_splats_dense
+    launches = None
+    for i, way in enumerate(("kernels", "plain", "plain", "kernels")):
+        rc.bin_splats_dense = kernel_binning if way == "kernels" else plain_binning
+        for k in kernels:
+            k.launches = 0
+        try:
+            one_way(f"{way} ({i + 1} of 4)", 200 + 10 * i)
+        finally:
+            rc.bin_splats_dense = kernel_binning
+        got = {k.__name__: k.launches for k in kernels}
+        bins = 3 * SPLAT_REPS if way == "kernels" else 0  # layer calls, frames, steps
+        check_launches(got, {"composite_fwd": 2 * SPLAT_REPS, "composite_bwd": SPLAT_REPS,
+                             "segsum": 0, "splat_fwd": 2 * SPLAT_REPS, "bins": bins},
+                       f"phase 18 (e) {way}")
+        if launches is None:
+            launches = got
+    print(f"  phase 18: launches {launches}; {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    return rows_out, launches
+
+
 def main() -> int:
     import torch
 
@@ -3003,7 +3310,6 @@ def main() -> int:
     from tinysplat_torch.io.checkpoint import load_model
     from tinysplat_torch.ops import _build
     from tinysplat_torch.ops import rasterize_cuda as rc
-    from tinysplat_torch.ops import splat_inputs_cuda as si
     from tinysplat_torch.probes import timed_ms
     from tinysplat_torch.render import render, splat_inputs
 
@@ -3084,7 +3390,8 @@ def main() -> int:
         frame(cam)
     torch.cuda.synchronize()
 
-    rc.composite_fwd.launches = si.splat_fwd.launches = 0
+    for k in counted_kernels(rc):
+        k.launches = 0
     frame_ms, host_ms, results = [], [], []
     for cam in cams:
         start = torch.cuda.Event(enable_timing=True)
@@ -3097,12 +3404,10 @@ def main() -> int:
         host_ms.append((time.perf_counter() - t0) * 1e3)
         frame_ms.append(start.elapsed_time(end))
         results.append((rgb, extras))
-    launches = rc.composite_fwd.launches
-    print(f"  composite_fwd launches during the {FRAMES} frames: {launches}; splat_fwd "
-          f"{si.splat_fwd.launches}", flush=True)
-    if launches != FRAMES or si.splat_fwd.launches != FRAMES:
-        raise AssertionError(f"expected {FRAMES} K1 and S1 launches, counted {launches} and "
-                             f"{si.splat_fwd.launches}")
+    frame_launches = {k.__name__: k.launches for k in counted_kernels(rc)}
+    print(f"  launches during the {FRAMES} frames: {frame_launches}", flush=True)
+    check_launches(frame_launches, {"composite_fwd": FRAMES, "composite_bwd": 0, "segsum": 0},
+                   "phase 4 frames")
 
     depth_medians = []
     for i, (rgb, ex) in enumerate(results):
@@ -3154,7 +3459,7 @@ def main() -> int:
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     k1_slot_ms = pairs * SLOTS_PER_WALKED_PAIR / SLOTS_PER_S * 1e3
-    intersections = [ex["binning"]["intersections"] for _, ex in results]
+    intersections = [int(ex["binning"]["intersections"]) for _, ex in results]
     med_frame = statistics.median(frame_ms)
     print(f"  frame: median {med_frame:.3f} ms (CUDA events), host median "
           f"{statistics.median(host_ms):.3f} ms, {1e3 / med_frame:.2f} frames/s; "
@@ -3226,10 +3531,9 @@ def main() -> int:
           f"{[round(x, 5) for x in losses]}; psnr {[round(float(m['psnr']), 3) for m, *_ in log]}",
           flush=True)
     check_steps(torch, log, "scatter")
-    if any(train_launches[k] != SCATTER_STEPS
-           for k in ("composite_fwd", "composite_bwd", "splat_fwd", "splat_bwd")):
-        raise AssertionError(f"expected {SCATTER_STEPS} K1, K2, S1 and S2 launches in "
-                             f"{SCATTER_STEPS} steps, counted {train_launches}")
+    check_launches(train_launches, {"composite_fwd": SCATTER_STEPS,
+                                    "composite_bwd": SCATTER_STEPS, "segsum": 0},
+                   f"phase 6 ({SCATTER_STEPS} scatter steps)")
     if not statistics.mean(losses[-3:]) < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
     accum = train.means_grad_accum[train.alive]
@@ -3258,8 +3562,8 @@ def main() -> int:
     print(f"  mxu steps: launches {mxu_launches}; losses "
           f"{[round(float(m['loss']), 5) for m, *_ in mxu_log]}", flush=True)
     check_steps(torch, mxu_log, "mxu")
-    if mxu_launches["segsum"] != MXU_STEPS:
-        raise AssertionError(f"expected {MXU_STEPS} K3 launches, counted {mxu_launches}")
+    check_launches(mxu_launches, {"composite_fwd": MXU_STEPS, "composite_bwd": MXU_STEPS,
+                                  "segsum": MXU_STEPS}, f"phase 6 ({MXU_STEPS} mxu steps)")
 
     # K2 and K3 at step 0's shapes: against the plain versions, timed.
     k2_err, rows0 = compare_backward(torch, rc, ti0, out0, gout0, "train step 0")
@@ -3337,12 +3641,16 @@ def main() -> int:
     # -- 17. the splat-input kernels S1 and S2 ------------------------------------------------
     splat_rows, splat_launches = splat_phase(torch, rc, tt, state, cams[0], train, opt, views,
                                              gts, cfg)
+
+    # -- 18. the binning kernels B1-B4 ------------------------------------------------------------
+    bin_rows, bin_launches = binning_phase(torch, rc, tt, state, cams[0], train, opt, views, gts,
+                                           cfg)
     by_phase = {name: {"6": train_launches[name] if name != "segsum" else
                        mxu_launches["segsum"], "10": mesh_launches[name],
                        "11": shard_launches[name], "12": diffusion_launches[name],
                        "13": quality_launches[name], "14": tools_launches[name],
                        "15": bench_launches[name], "16": tile_launches[name],
-                       "17": splat_launches[name]}
+                       "17": splat_launches[name], "18": bin_launches[name]}
                 for name in mesh_launches}
 
     record = {"kernels": [{
@@ -3393,7 +3701,16 @@ def main() -> int:
         "launches_by_phase": by_phase[name],
         **splat_rows[name],
         "library_ms": None,
-    } for name in ("splat_fwd", "splat_bwd")]}
+    } for name in ("splat_fwd", "splat_bwd")] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "tinysplat_torch/csrc/binning.cu",
+        "replaces": f"tinysplat_tpu/ops/binning.py:{line}",
+        "launches": sum(by_phase[name].values()),
+        "launches_by_phase": by_phase[name],
+        **bin_rows[name],
+    } for name, line in (("bin_count", 236), ("bin_emit", 316), ("radix_hist", 395),
+                         ("radix_scatter", 395))]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

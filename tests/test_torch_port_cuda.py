@@ -618,3 +618,157 @@ def test_s2_takes_colors_rest_at_any_offset(deg, offset):
     for a, b in zip(aligned, shifted):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
+
+
+# --- B1-B4: tile binning (csrc/binning.cu) ------------------------------------
+# Every integer output bit for bit against the plain version on the card,
+# stage by stage and whole (binning_cuda.stage_mismatch), and two runs of
+# the kernels byte for byte.
+BIN_W, BIN_H, BIN_N = 640, 400, 20_000
+
+
+def _bin_splats(seed, n=BIN_N, width=BIN_W, height=BIN_H):
+    """numpy splats on the card: on and far off the image, invalid ones with
+    non-finite positions, opacities below 1/255, exact depth ties."""
+    rng = np.random.default_rng(seed)
+    xys = rng.uniform(-40, [width + 40, height + 40], size=(n, 2))
+    far = rng.choice(n, n // 50, replace=False)
+    xys[far] = rng.choice([-1e9, 1e9, 3e7, 3e38], size=(len(far), 2))
+    depths = rng.uniform(0.5, 5.0, n)
+    depths[rng.choice(n, n // 10, replace=False)] = 2.0
+    radii = rng.integers(0, 64, n)
+    valid = rng.uniform(size=n) > 0.1
+    xys[rng.choice(np.flatnonzero(~valid), 20, replace=False)] = np.nan
+    L = rng.normal(size=(n, 2, 2)) * rng.uniform(0.5, 6.0, (n, 1, 1))
+    inv = np.linalg.inv(L @ np.swapaxes(L, 1, 2) + np.eye(2))
+    conics = np.stack([inv[:, 0, 0], inv[:, 0, 1], inv[:, 1, 1]], axis=1)
+    opac = rng.uniform(0.0, 1.0, n)
+    opac[rng.choice(n, n // 10, replace=False)] = rng.uniform(0.0, 1.0 / 255.0, n // 10)
+
+    def cuda(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device="cuda")
+
+    return (cuda(xys), cuda(depths), cuda(radii, torch.int32), cuda(valid, torch.bool),
+            cuda(conics), cuda(opac))
+
+
+# name: (tile_h, tile_x, row_stride, row_offset, ellipse cull, capacities)
+BIN_CASES = {
+    "16x64": (16, 64, 1, 0, True, {}),
+    "8x8": (8, 8, 1, 0, True, {}),
+    "12x12": (12, 12, 1, 0, True, {}),
+    "32x32": (32, 32, 1, 0, True, {}),
+    "16x16 rect": (16, 16, 1, 0, False, {}),
+    "8x8 stride 3 offset 2": (8, 8, 3, 2, True, {}),
+    "span cut": (8, 8, 1, 0, True, {"span_capacity": "inside"}),
+    "dup cut": (8, 8, 1, 0, True, {"dup_capacity": "inside"}),
+    "max_per_tile": (16, 64, 1, 0, True, {"max_per_tile": 128}),
+    "8x8 SMEM_TILES": (8, 8, 1, 0, True, {}),
+    "8x8 SMEM_TILES + 1": (8, 8, 1, 0, True, {}),
+    "8x8 1024x768": (8, 8, 1, 0, True, {}),
+}
+# Images other than BIN_W x BIN_H: B3 counts whole tile ids in shared memory
+# up to binning_cuda.SMEM_TILES tiles (12,032: 128x94 tiles) and in device
+# memory past it (191x63 tiles: one more; 128x96).
+BIN_IMAGE = {"8x8 SMEM_TILES": (1024, 752), "8x8 SMEM_TILES + 1": (1528, 504),
+             "8x8 1024x768": (1024, 768)}
+
+
+def _bin_case(name):
+    from tinysplat_torch.ops import binning
+
+    _need_card()
+    th, tx, stride, offset, clip, caps_kw = BIN_CASES[name]
+    width, height = BIN_IMAGE.get(name, (BIN_W, BIN_H))
+    xys, depths, radii, valid, conics, opac = _bin_splats(len(name), BIN_N, width, height)
+    geom = binning.BinGeometry(-(-width // tx), -(-height // th) // stride, th, tx, stride,
+                               offset)
+    extra = (conics, opac) if clip else (None, None)
+    caps_kw = dict(caps_kw)
+    roomy = binning.budgets(BIN_N, geom.tiles_x * geom.tiles_y, 128, 64 * BIN_N, 0,
+                            32 * BIN_N)
+    if caps_kw:
+        rects = binning.splat_rects(xys, radii, valid, geom, *extra)
+        order = binning.depth_order(depths, valid)
+        _, span_len, _, _ = binning.expand_spans(rects, order, geom)
+        lens = span_len.cpu().numpy()
+        starts = np.cumsum(lens) - lens
+        if caps_kw.get("span_capacity") == "inside":  # inside a splat's rows
+            rows = rects.rows[order].cpu().numpy().astype(np.int64)
+            deep = np.flatnonzero(rows >= 3)
+            caps_kw["span_capacity"] = int((np.cumsum(rows) - rows)[deep[len(deep) // 2]] + 1)
+        if caps_kw.get("dup_capacity") == "inside":  # a multiple of 128 inside a span
+            caps_kw["dup_capacity"] = next(
+                int(s + 128 - s % 128) for s, n in zip(starts, lens)
+                if n >= 2 and s % 128 and s + 128 - s % 128 < s + n and s > lens.sum() // 2)
+    caps = binning.budgets(BIN_N, geom.tiles_x * geom.tiles_y, 128,
+                           caps_kw.get("dup_capacity", roomy.dup_capacity),
+                           caps_kw.get("max_per_tile", 0),
+                           caps_kw.get("span_capacity", roomy.span_capacity))
+    return (xys, depths, radii, valid, geom, caps, 128, *extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(BIN_CASES))
+def test_binning_kernels_bit_equal_to_plain(name):
+    from tinysplat_torch.ops import binning_cuda as bc
+
+    args = _bin_case(name)
+    rep = bc.stage_mismatch(*args)
+    assert rep["ok"], rep
+    if name.startswith("8x8 SMEM_TILES"):
+        assert args[4].tiles_x * args[4].tiles_y == bc.SMEM_TILES + name.endswith("+ 1")
+    c = rep["counters"]
+    assert c["num_entries"] > 0
+    if name in ("span cut", "dup cut"):
+        assert c["dup_overflow"] > 0
+    if name == "max_per_tile":
+        assert c["tile_overflow"] > 0
+
+
+@pytest.mark.cuda
+# 12,032 and 12,033: binning_cuda.SMEM_TILES and one past it.
+@pytest.mark.parametrize("num_tiles", [1 << 8, 12_032, 12_033, 1 << 16, (1 << 16) + 1])
+def test_radix_sort_equals_stable_sort(num_tiles):
+    from tinysplat_torch.ops import binning_cuda as bc
+
+    _need_card()
+    rng = np.random.default_rng(num_tiles)
+    n, cap = 300_000, 300_032
+    hot = rng.integers(0, num_tiles, 16)
+    keys = np.where(rng.uniform(size=n) < 0.5, rng.choice(hot, n),
+                    rng.integers(0, num_tiles, n))
+    keys[-100:] = num_tiles - 1
+    k = torch.zeros(cap, dtype=torch.int32, device="cuda")
+    k[:n] = torch.as_tensor(keys, dtype=torch.int32, device="cuda")
+    v = torch.arange(cap, dtype=torch.int32, device="cuda")
+    counters = torch.tensor([n, n, 0], dtype=torch.int32, device="cuda")
+    full = torch.zeros(num_tiles, dtype=torch.int32, device="cuda")
+    out = torch.full((cap,), -1, dtype=torch.int32, device="cuda")
+    before = bc.radix_scatter.launches
+    bc.sort_by_tile(k.clone(), v.clone(), counters, num_tiles, full, out)
+    assert bc.radix_scatter.launches - before == bc.radix_passes(num_tiles)
+    want = torch.sort(k[:n], stable=True).indices.to(torch.int32)
+    assert torch.equal(out[:n], want) and bool((out[n:] == -1).all())
+    assert torch.equal(full, torch.bincount(k[:n].long(), minlength=num_tiles).int())
+
+
+@pytest.mark.cuda
+def test_tile_inputs_makes_no_host_sync():
+    """tile_inputs on the card (binning through B1-B4, the table, the tile
+    origins) queues without one host sync; the counters stay on the card."""
+    _need_card()
+    xys, depths, radii, valid, conics, opac = _bin_splats(3)
+    colors = torch.rand((BIN_N, 4), device="cuda")
+    kw = dict(tile_x=64, dup_capacity=64 * BIN_N, span_capacity=32 * BIN_N)
+    ref = rc.tile_inputs(xys, depths, radii, conics, colors, opac, valid, BIN_H, BIN_W, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ti = rc.tile_inputs(xys, depths, radii, conics, colors, opac, valid, BIN_H, BIN_W, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ti.bins.num_entries.device.type == "cuda" and ti.bins.num_entries.dim() == 0
+    for a, b in zip(ti.bins, ref.bins):
+        assert torch.equal(a, b)
+    assert torch.equal(ti.table.view(torch.int32), ref.table.view(torch.int32))  # NaN rows too

@@ -209,6 +209,19 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
         poisson.reconstruct(np.random.default_rng(0).normal(size=(40, 3)))
 
 
+SLICE_N_MODULES = ("ops.binning", "ops.binning_cuda")
+
+
+@pytest.mark.parametrize("module", SLICE_N_MODULES)
+def test_slice_n_modules_import_no_jax(module):
+    """Tile binning and its kernels' wrappers: torch and ctypes, never the
+    JAX package's binning; the kernels' source is one of the built ones."""
+    from tinysplat_torch.ops import _build
+
+    test_slice_d_modules_import_no_jax(module)
+    assert "binning" in _build.KERNELS and (_build.CSRC / "binning.cu").exists()
+
+
 def test_every_module_imports_without_nvcc():
     """Importing builds nothing: kernels build at their first launch."""
     from tinysplat_torch.ops import _build
@@ -216,7 +229,7 @@ def test_every_module_imports_without_nvcc():
     names = [m.name for m in pkgutil.walk_packages(tt.__path__, "tinysplat_torch.")]
     for new in ("models.densify", "train_loop", "train_cli", "io.checkpoint",
                 "probes.bitcast", "probes.op_costs") + SLICE_D_MODULES + SLICE_E_MODULES \
-            + SLICE_F_MODULES + SLICE_G_MODULES + SLICE_H_MODULES:
+            + SLICE_F_MODULES + SLICE_G_MODULES + SLICE_H_MODULES + SLICE_N_MODULES:
         assert f"tinysplat_torch.{new}" in names
     for name in names:
         importlib.import_module(name)

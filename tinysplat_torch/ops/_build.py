@@ -26,10 +26,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("composite_fwd", "composite_bwd", "segsum", "probe_bitcast", "probe_op_costs",
-           "splat_fwd", "splat_bwd")
-# Flags of one source only. The splat-input kernels round every product and
-# sum on its own, as the torch ops of their plain version do.
-EXTRA_FLAGS = {"splat_fwd": ("-fmad=false",), "splat_bwd": ("-fmad=false",)}
+           "splat_fwd", "splat_bwd", "binning")
+# Flags of one source only. The splat-input and binning kernels round every
+# product and sum on its own, as the torch ops of their plain versions do
+# (the binning kernels also spell each rounding out with intrinsics).
+EXTRA_FLAGS = {"splat_fwd": ("-fmad=false",), "splat_bwd": ("-fmad=false",),
+               "binning": ("-fmad=false",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # A viewer thread and the trainer's thread may launch a kernel first at once.
@@ -115,14 +117,15 @@ def function(name: str, symbol: str, argtypes: tuple):
     return fn
 
 
-def launch(name: str, argtypes: tuple, device, *args) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream (passed as the
-    last argument); raises if the launch was refused (every entry point
-    returns cudaGetLastError())."""
+def launch(name: str, argtypes: tuple, device, *args, symbol: str = "") -> None:
+    """Launch entry point ``symbol`` (default: ``name``) of source ``name``
+    on ``device``'s current stream (passed as the last argument); raises if
+    the launch was refused (every entry point returns cudaGetLastError())."""
     import torch
 
-    fn = function(name, name, argtypes)
+    symbol = symbol or name
+    fn = function(name, symbol, argtypes)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")

@@ -723,7 +723,8 @@ def rasterize_cuda(
 ):
     """Rasterize to an (H, W, C<=4) image + (H, W) alpha; dense-oracle
     semantics. Drop-in for ``rasterize_pallas``: with return_diagnostics,
-    also returns {'intersections', 'dup_dropped', 'tile_dropped'}.
+    also returns {'intersections', 'dup_dropped', 'tile_dropped'}, 0-d int32
+    tensors on the image's device (the JAX package's device scalars).
 
     ``tile_size`` sets the tile HEIGHT and ``tile_x`` the WIDTH: 0 (the
     default) makes the tile square, ``tile_size`` x ``tile_size`` at any

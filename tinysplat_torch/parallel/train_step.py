@@ -279,7 +279,7 @@ def make_sharded_train_step(cfg: Config, img_height: int, img_width: int, batch:
         params_col = unpack_params(col.all_gather(pack_params(state.params), data_g,
                                                   "param_gather"), state.params)
         order = global_order(mesh, c_shard, dev)
-        rgbs, depths, diag = [], [], torch.zeros(3, dtype=torch.int64)
+        rgbs, depths, diag = [], [], torch.zeros(3, dtype=torch.int64, device=dev)
         for b, cam in enumerate(vcams):
             # (2) project + SH, (3) gather over 'tile', (4) this band.
             s = splat_inputs(params_col, alive_col, cam, H, W, active_deg, background,
@@ -295,7 +295,8 @@ def make_sharded_train_step(cfg: Config, img_height: int, img_width: int, batch:
                 rgb = apply_appearance(rgb, app[b])
             rgbs.append(rgb)
             depths.append(img4[..., 3])
-            diag += torch.tensor([dg["intersections"], dg["dup_dropped"], dg["tile_dropped"]])
+            # 0-d device tensors: stacked where they lie, never read on the host.
+            diag += torch.stack([dg["intersections"], dg["dup_dropped"], dg["tile_dropped"]])
         rgb, depth = torch.stack(rgbs), torch.stack(depths)
 
         # (5) losses: every psum spans the mesh; the partial sums go in one.

@@ -98,6 +98,7 @@ def sharded_step_ms(mesh_shape, batch: int, height: int, width: int, means, colo
     of ``mesh_shape`` on ``means`` in ``capacity`` slots, its ms a step
     over ``STEP_ITERS`` after a warm-up, and the kernels' launches in all
     of them."""
+    from ..ops import binning_cuda as bc
     from ..ops import rasterize_cuda as rc
     from ..ops import splat_inputs_cuda as si
     from ..parallel import make_mesh, make_sharded_train_step, rank_device, shard_state
@@ -120,7 +121,8 @@ def sharded_step_ms(mesh_shape, batch: int, height: int, width: int, means, colo
     gt = torch.as_tensor(gt[d_idx * bl:(d_idx + 1) * bl][:, rows], device=dev)
     fn = make_sharded_train_step(cfg, height, width, batch, mesh)
     generator = torch.Generator(device=dev)
-    kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum, si.splat_fwd, si.splat_bwd)
+    kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum, si.splat_fwd, si.splat_bwd,
+               bc.bin_count, bc.bin_emit, bc.radix_hist, bc.radix_scatter)
 
     def step(s):
         generator.manual_seed(0)
