@@ -431,7 +431,7 @@ def test_profile_window_eval_and_prefetch(tmp_path):
                        torch.from_numpy(cam.get_original_image()))
     tr.run(8)
     assert tr._prof is None and tr.profile_summary["steps"] == 2
-    assert os.path.exists(tmp_path / "trace" / "trace.json")
+    assert os.path.exists(tmp_path / "trace" / tr._timestamp / "trace.json")
     tr.eval_cameras = [tr.scene.cameras[0]]
     out = tr.evaluate()
     assert np.isfinite(out["eval_psnr"]) and 0.0 <= out["eval_ssim"] <= 1.0

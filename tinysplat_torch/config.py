@@ -173,9 +173,11 @@ class Config:
     # recompile when it fires; reclaims HBM after heavy pruning.
     compact_interval: int = 0
     compact_margin: float = 2.0
-    # In-loop profiling (the reference has none, SURVEY.md section 5): capture a
-    # jax.profiler trace of profile_steps steps starting at profile_start
-    # (past warmup compiles) and print the serialized per-op breakdown.
+    # In-loop profiling (the reference has none, SURVEY.md section 5): a
+    # torch.profiler window of profile_steps steps starting at profile_start
+    # (past warm-up), its top ops printed and its Chrome trace written to
+    # <profile_dir>/<the run's start time>/trace.json, so runs do not
+    # overwrite each other's (the default directory is the JAX Config's).
     profile_steps: int = 0
     profile_start: int = 20
     profile_dir: str = "/tmp/tinysplat_trace"

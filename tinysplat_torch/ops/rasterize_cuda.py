@@ -44,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 from .binning import DenseBins, bin_splats_dense
 from .rasterize_dense import ALPHA_EPS, ALPHA_MAX, T_EPS
@@ -670,11 +671,13 @@ class _CompositeTiles(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gout):
         table, entry_rank, tile_starts, counts, sx, sy, out = ctx.saved_tensors
-        rows = composite_bwd(table, entry_rank, tile_starts, counts, sx, sy, out,
-                             gout.contiguous(), ctx.tile_x, ctx.tile_h)
-        n = table.shape[0] - 1
-        dtable = torch.cat([reduce_entry_grads(rows, entry_rank, n, ctx.grad_reduce),
-                            table.new_zeros((1, TABLE_COLS))])
+        with span("ts.composite.backward"):
+            rows = composite_bwd(table, entry_rank, tile_starts, counts, sx, sy, out,
+                                 gout.contiguous(), ctx.tile_x, ctx.tile_h)
+        with span("ts.composite.reduce"):
+            n = table.shape[0] - 1
+            dtable = torch.cat([reduce_entry_grads(rows, entry_rank, n, ctx.grad_reduce),
+                                table.new_zeros((1, TABLE_COLS))])
         return (dtable,) + (None,) * 8
 
 
@@ -745,15 +748,18 @@ def rasterize_cuda(
         raise ValueError(f"tile_x must be 0 (square tiles) or a positive multiple of "
                          f"{SUB_X}, got {tile_x}")
     tile_x = tile_x or tile_size
-    ti = tile_inputs(xys, depths, radii, conics, colors, opacities, valid,
-                     img_height, img_width, chunk=chunk, dup_capacity=dup_capacity,
-                     max_per_tile=max_per_tile, span_capacity=span_capacity,
-                     tile_x=tile_x, row_stride=row_stride, row_offset=row_offset,
-                     tile_h=tile_size)
-    out = composite_tiles(ti.table, ti.entry_rank, ti.tile_starts, ti.counts,
-                          ti.sx, ti.sy, tile_x, grad_reduce, tile_size)
-    img, alpha = untile(out, background, ti.tiles_x, ti.tiles_y, tile_x,
-                        img_height, img_width, tile_size)
+    with span("ts.render.tile_inputs"):
+        ti = tile_inputs(xys, depths, radii, conics, colors, opacities, valid,
+                         img_height, img_width, chunk=chunk, dup_capacity=dup_capacity,
+                         max_per_tile=max_per_tile, span_capacity=span_capacity,
+                         tile_x=tile_x, row_stride=row_stride, row_offset=row_offset,
+                         tile_h=tile_size)
+    with span("ts.render.composite"):
+        out = composite_tiles(ti.table, ti.entry_rank, ti.tile_starts, ti.counts,
+                              ti.sx, ti.sy, tile_x, grad_reduce, tile_size)
+    with span("ts.render.untile"):
+        img, alpha = untile(out, background, ti.tiles_x, ti.tiles_y, tile_x,
+                            img_height, img_width, tile_size)
     if return_diagnostics:
         diag = {
             "intersections": ti.bins.total_intersections,

@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 from .projection import COV2D_BLUR, project_gaussians
 from .sh import SH_C1, SH_C2, SH_C3, SH_C4, band_of_basis, deg_from_sh, eval_sh, sh_basis
@@ -700,23 +701,24 @@ class _FusedSplatInputs(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_xys, g_depths, _radii, g_conics, _tiles, _valid, g_colors4, g_opac):
-        means, scales, quats, colors_dc, colors_rest, opacities, viewmat, full_projmat, \
-            cam_pos = ctx.saved_tensors
-        fx, fy, active_degree, layout = ctx.camera
-        need = ctx.needs_input_grad
-        cam_grad = any(need[6:9])
-        g = splat_bwd(means, scales, quats, colors_dc, colors_rest, opacities, viewmat,
-                      full_projmat, cam_pos, fx, fy, active_degree, layout, g_xys, g_depths,
-                      g_conics, g_colors4, g_opac, cam_grad)
-        g_view = g_proj = g_pos = None
-        if cam_grad:
-            g_cam = g[6]
-            g_view = torch.cat([g_cam[:12].reshape(3, 4),
-                                g_cam.new_zeros((viewmat.shape[0] - 3, 4))])
-            g_proj = g_cam[12:28].reshape(4, 4)
-            if layout.viewdirs_mode == "position":
-                g_pos = g_cam[28:31]
-        return (*g[:6], g_view, g_proj, g_pos) + (None,) * 7
+        with span("ts.splat_inputs.backward"):
+            means, scales, quats, colors_dc, colors_rest, opacities, viewmat, full_projmat, \
+                cam_pos = ctx.saved_tensors
+            fx, fy, active_degree, layout = ctx.camera
+            need = ctx.needs_input_grad
+            cam_grad = any(need[6:9])
+            g = splat_bwd(means, scales, quats, colors_dc, colors_rest, opacities, viewmat,
+                          full_projmat, cam_pos, fx, fy, active_degree, layout, g_xys, g_depths,
+                          g_conics, g_colors4, g_opac, cam_grad)
+            g_view = g_proj = g_pos = None
+            if cam_grad:
+                g_cam = g[6]
+                g_view = torch.cat([g_cam[:12].reshape(3, 4),
+                                    g_cam.new_zeros((viewmat.shape[0] - 3, 4))])
+                g_proj = g_cam[12:28].reshape(4, 4)
+                if layout.viewdirs_mode == "position":
+                    g_pos = g_cam[28:31]
+            return (*g[:6], g_view, g_proj, g_pos) + (None,) * 7
 
 
 def fused_splat_inputs(means, scales, quats, colors_dc, colors_rest, opacities, alive,

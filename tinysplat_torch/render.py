@@ -21,6 +21,7 @@ from .cameras import CameraParams
 from .models.gaussians import GaussianParams
 from .ops.projection import ProjectedGaussians
 from .ops.splat_inputs_cuda import SplatLayout, fused_splat_inputs
+from .utils.profiling import span
 
 RASTERIZERS = ("auto", "cuda", "dense")
 
@@ -114,10 +115,11 @@ def render(
     (``proj_height``, default img_height). The dense oracle has no bands.
     """
     rasterizer = resolve_rasterizer(rasterizer)
-    s = splat_inputs(params, alive, camera, img_height, img_width, active_sh_degree,
-                     background, xys_probe=xys_probe, viewdirs_mode=viewdirs_mode,
-                     tile_size=tile_size, antialiased=antialiased,
-                     proj_height=proj_height)
+    with span("ts.render.splat_inputs"):
+        s = splat_inputs(params, alive, camera, img_height, img_width, active_sh_degree,
+                         background, xys_probe=xys_probe, viewdirs_mode=viewdirs_mode,
+                         tile_size=tile_size, antialiased=antialiased,
+                         proj_height=proj_height)
     diag = None
     if rasterizer == "dense":
         from .ops.rasterize_dense import rasterize_dense
@@ -142,15 +144,16 @@ def render(
             row_stride=row_stride, row_offset=row_offset,
         )
 
-    rgb = torch.minimum(img4[..., :3], img4.new_ones(()))  # ties as in splat_inputs
-    extras = {
-        "depth": img4[..., 3],
-        "alpha": alpha,
-        "radii": s.proj.radii,
-        "xys": s.xys,
-        "depths": s.proj.depths,
-        "camera": {"height": img_height, "width": img_width},
-    }
-    if diag is not None:
-        extras["binning"] = diag
+    with span("ts.render.untile"):
+        rgb = torch.minimum(img4[..., :3], img4.new_ones(()))  # ties as in splat_inputs
+        extras = {
+            "depth": img4[..., 3],
+            "alpha": alpha,
+            "radii": s.proj.radii,
+            "xys": s.xys,
+            "depths": s.proj.depths,
+            "camera": {"height": img_height, "width": img_width},
+        }
+        if diag is not None:
+            extras["binning"] = diag
     return rgb, extras

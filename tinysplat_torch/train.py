@@ -47,6 +47,7 @@ from .config import Config
 from .models.gaussians import GaussianParams, GaussianState
 from .ops.ssim import psnr, ssim
 from .render import render
+from .utils.profiling import span
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -241,63 +242,64 @@ def compute_losses(
         tiles_per_block=cfg.tiles_per_block, tile_x=cfg.tile_x,
         antialiased=cfg.antialiased,
     )
-    if app_params is not None:  # app_opt: exposure compensation, loss only
-        rgb = apply_appearance(rgb, app_params)
-    loss_l1 = torch.mean(torch.abs(rgb - gt_image))
-    loss_ssim = 1.0 - ssim(rgb, gt_image)
-    loss = (1.0 - cfg.lambda_dssim) * loss_l1 + cfg.lambda_dssim * loss_ssim
+    with span("ts.train_step.loss"):
+        if app_params is not None:  # app_opt: exposure compensation, loss only
+            rgb = apply_appearance(rgb, app_params)
+        loss_l1 = torch.mean(torch.abs(rgb - gt_image))
+        loss_ssim = 1.0 - ssim(rgb, gt_image)
+        loss = (1.0 - cfg.lambda_dssim) * loss_l1 + cfg.lambda_dssim * loss_ssim
 
-    aux: Dict[str, Any] = {
-        "loss_l1": loss_l1,
-        "loss_ssim": loss_ssim,
-        "rgb": rgb,
-        "depth": extras["depth"],
-        "alpha": extras["alpha"],
-    }
-    if "binning" in extras:
-        aux["n_intersections"] = extras["binning"]["intersections"]
-        aux["n_dup_dropped"] = extras["binning"]["dup_dropped"]
-        aux["n_tile_dropped"] = extras["binning"]["tile_dropped"]
+        aux: Dict[str, Any] = {
+            "loss_l1": loss_l1,
+            "loss_ssim": loss_ssim,
+            "rgb": rgb,
+            "depth": extras["depth"],
+            "alpha": extras["alpha"],
+        }
+        if "binning" in extras:
+            aux["n_intersections"] = extras["binning"]["intersections"]
+            aux["n_dup_dropped"] = extras["binning"]["dup_dropped"]
+            aux["n_tile_dropped"] = extras["binning"]["tile_dropped"]
 
-    if cfg.regularize_depth and est_depth is not None:
-        gate = _schedule_gate(True, cfg.regularize_depth_start, cfg.regularize_depth_end, step)
-        loss_depth = torch.mean(torch.abs(extras["depth"] - est_depth))
-        loss = loss + gate * cfg.lambda_depth * loss_depth
-        aux["loss_depth"] = loss_depth
+        if cfg.regularize_depth and est_depth is not None:
+            gate = _schedule_gate(True, cfg.regularize_depth_start, cfg.regularize_depth_end, step)
+            loss_depth = torch.mean(torch.abs(extras["depth"] - est_depth))
+            loss = loss + gate * cfg.lambda_depth * loss_depth
+            aux["loss_depth"] = loss_depth
 
-    if cfg.regularize_opacity:  # opacity entropy, over live splats only
-        gate = _schedule_gate(True, cfg.regularize_opacity_start,
-                              cfg.regularize_opacity_end, step)
-        o = torch.sigmoid(params.opacities.reshape(-1))
-        ent = -(o * torch.log(o + 1e-10) + (1 - o) * torch.log(1 - o + 1e-10))
-        n_live = torch.clamp(state.alive.sum(), min=1)
-        loss_opacity = torch.where(state.alive, ent, 0.0).sum() / n_live
-        loss = loss + gate * cfg.lambda_opacity * loss_opacity
-        aux["loss_opacity"] = loss_opacity
-
-    # SuGaR density / SDF term against the cached probe.
-    if cfg.regularize_density and density_probe is not None:
-        from .regularizers.density import density_loss
-
-        gate = _schedule_gate(True, cfg.regularize_density_start,
-                              cfg.regularize_density_end, step)
-        loss_density = density_loss(density_probe, params, extras["depth"], camera,
-                                    img_height, img_width, use_sdf=cfg.regularize_sdf)
-        loss = loss + gate * cfg.lambda_density * loss_density
-        aux["loss_density"] = loss_density
-
-    if cfg.densify_strategy == "mcmc":  # 3DGS-MCMC sparsity regularizers
-        n_live = torch.clamp(state.alive.sum(), min=1)
-        if cfg.lambda_mcmc_opacity > 0:
+        if cfg.regularize_opacity:  # opacity entropy, over live splats only
+            gate = _schedule_gate(True, cfg.regularize_opacity_start,
+                                  cfg.regularize_opacity_end, step)
             o = torch.sigmoid(params.opacities.reshape(-1))
-            loss_mo = torch.where(state.alive, o, 0.0).sum() / n_live
-            loss = loss + cfg.lambda_mcmc_opacity * loss_mo
-            aux["loss_mcmc_opacity"] = loss_mo
-        if cfg.lambda_mcmc_scale > 0:
-            s = torch.exp(params.scales)
-            loss_ms = torch.where(state.alive[:, None], s, 0.0).sum() / (3 * n_live)
-            loss = loss + cfg.lambda_mcmc_scale * loss_ms
-            aux["loss_mcmc_scale"] = loss_ms
+            ent = -(o * torch.log(o + 1e-10) + (1 - o) * torch.log(1 - o + 1e-10))
+            n_live = torch.clamp(state.alive.sum(), min=1)
+            loss_opacity = torch.where(state.alive, ent, 0.0).sum() / n_live
+            loss = loss + gate * cfg.lambda_opacity * loss_opacity
+            aux["loss_opacity"] = loss_opacity
+
+        # SuGaR density / SDF term against the cached probe.
+        if cfg.regularize_density and density_probe is not None:
+            from .regularizers.density import density_loss
+
+            gate = _schedule_gate(True, cfg.regularize_density_start,
+                                  cfg.regularize_density_end, step)
+            loss_density = density_loss(density_probe, params, extras["depth"], camera,
+                                        img_height, img_width, use_sdf=cfg.regularize_sdf)
+            loss = loss + gate * cfg.lambda_density * loss_density
+            aux["loss_density"] = loss_density
+
+        if cfg.densify_strategy == "mcmc":  # 3DGS-MCMC sparsity regularizers
+            n_live = torch.clamp(state.alive.sum(), min=1)
+            if cfg.lambda_mcmc_opacity > 0:
+                o = torch.sigmoid(params.opacities.reshape(-1))
+                loss_mo = torch.where(state.alive, o, 0.0).sum() / n_live
+                loss = loss + cfg.lambda_mcmc_opacity * loss_mo
+                aux["loss_mcmc_opacity"] = loss_mo
+            if cfg.lambda_mcmc_scale > 0:
+                s = torch.exp(params.scales)
+                loss_ms = torch.where(state.alive[:, None], s, 0.0).sum() / (3 * n_live)
+                loss = loss + cfg.lambda_mcmc_scale * loss_ms
+                aux["loss_mcmc_scale"] = loss_ms
 
     return loss, aux
 
@@ -326,67 +328,71 @@ def make_train_step(cfg: Config, img_height: int, img_width: int):
                    app_params: Optional[torch.Tensor] = None,
                    density_probe=None,
                    noise_eps: Optional[torch.Tensor] = None) -> StepOutput:
-        step = int(step)
-        for (name, t), group in zip(state.params.fields(), opt_state.param_groups):
-            if group["params"][0] is not t:
-                raise ValueError(f"opt_state does not update state.params.{name}: build it "
-                                 "with init_opt_state(cfg, state)")
-        dev = gt_image.device
-        # SH degree warm-up: +1 every sh_increment_interval steps, capped.
-        active_deg = min(cfg.sh_degree, 1 + step // cfg.sh_increment_interval)
-        state = dataclasses.replace(
-            state, active_sh_degree=torch.tensor(active_deg, dtype=torch.int32, device=dev))
-        if background is None:
-            background = _resolve_background(cfg, generator, dev)
+        with span("ts.train_step"):
+            step = int(step)
+            for (name, t), group in zip(state.params.fields(), opt_state.param_groups):
+                if group["params"][0] is not t:
+                    raise ValueError(f"opt_state does not update state.params.{name}: build it "
+                                     "with init_opt_state(cfg, state)")
+            dev = gt_image.device
+            # SH degree warm-up: +1 every sh_increment_interval steps, capped.
+            active_deg = min(cfg.sh_degree, 1 + step // cfg.sh_increment_interval)
+            state = dataclasses.replace(
+                state, active_sh_degree=torch.tensor(active_deg, dtype=torch.int32, device=dev))
+            if background is None:
+                background = _resolve_background(cfg, generator, dev)
 
-        probe = torch.zeros((state.capacity, 2), dtype=gt_image.dtype, device=dev,
-                            requires_grad=True)
-        # The camera-side leaves: gradients for the trainer's pose / app Adams.
-        pose = (pose_delta.detach().clone().requires_grad_()
-                if cfg.pose_opt and pose_delta is not None else None)
-        app = (app_params.detach().clone().requires_grad_()
-               if cfg.app_opt and app_params is not None else None)
-        opt_state.zero_grad(set_to_none=True)
-        loss, aux = compute_losses(state.params, probe, state, camera, gt_image, est_depth,
-                                   background, step, cfg, img_height, img_width,
-                                   density_probe=density_probe, pose_delta=pose,
-                                   app_params=app)
-        loss.backward()
-        opt_state.step()
-        if cfg.densify_strategy == "mcmc":
-            from .models import densify_mcmc
+            probe = torch.zeros((state.capacity, 2), dtype=gt_image.dtype, device=dev,
+                                requires_grad=True)
+            # The camera-side leaves: gradients for the trainer's pose / app Adams.
+            pose = (pose_delta.detach().clone().requires_grad_()
+                    if cfg.pose_opt and pose_delta is not None else None)
+            app = (app_params.detach().clone().requires_grad_()
+                   if cfg.app_opt and app_params is not None else None)
+            opt_state.zero_grad(set_to_none=True)
+            with span("ts.train_step.forward"):
+                loss, aux = compute_losses(state.params, probe, state, camera, gt_image,
+                                           est_depth, background, step, cfg, img_height,
+                                           img_width, density_probe=density_probe,
+                                           pose_delta=pose, app_params=app)
+            with span("ts.train_step.backward"):
+                loss.backward()
+            opt_state.step()  # inside torch's own Optimizer.step#GaussianAdam.step range
+            with span("ts.train_step.accum"):
+                if cfg.densify_strategy == "mcmc":
+                    from .models import densify_mcmc
 
-            lr_scaler = cfg.mcmc_noise_lr * means_lr_at(cfg, step)
-            if noise_eps is None:
-                densify_mcmc.inject_noise(state.params, state.alive, lr_scaler, cfg,
-                                          generator)
-            else:
-                densify_mcmc.apply_noise(state.params, state.alive, noise_eps, lr_scaler,
-                                         cfg)
+                    lr_scaler = cfg.mcmc_noise_lr * means_lr_at(cfg, step)
+                    if noise_eps is None:
+                        densify_mcmc.inject_noise(state.params, state.alive, lr_scaler, cfg,
+                                                  generator)
+                    else:
+                        densify_mcmc.apply_noise(state.params, state.alive, noise_eps, lr_scaler,
+                                                 cfg)
 
-        # Densification signal: ||dL/d(screen xy)|| past the warm-up.
-        accum = state.means_grad_accum
-        if step >= cfg.warmup_grad:
-            accum = accum + torch.linalg.norm(probe.grad, dim=-1)
-        new_state = dataclasses.replace(state, means_grad_accum=accum)
+                # Densification signal: ||dL/d(screen xy)|| past the warm-up.
+                accum = state.means_grad_accum
+                if step >= cfg.warmup_grad:
+                    accum = accum + torch.linalg.norm(probe.grad, dim=-1)
+                new_state = dataclasses.replace(state, means_grad_accum=accum)
 
-        metrics = {
-            "loss": loss.detach(),
-            "loss_l1": aux["loss_l1"].detach(),
-            "loss_ssim": aux["loss_ssim"].detach(),
-            "psnr": psnr(aux["rgb"].detach(), gt_image),
-            "num_live": new_state.num_live(),
-        }
-        for k in ("loss_depth", "loss_opacity", "loss_density", "n_intersections",
-                  "n_dup_dropped", "n_tile_dropped"):
-            if k in aux:
-                v = aux[k]
-                metrics[k] = v.detach() if torch.is_tensor(v) else v
-        if pose is not None:
-            metrics["pose_grad"] = pose.grad  # (6,); the trainer runs its Adam
-        if app is not None:
-            metrics["app_grad"] = app.grad  # (12,)
-        return StepOutput(new_state, opt_state, metrics, aux["rgb"].detach())
+                metrics = {
+                    "loss": loss.detach(),
+                    "loss_l1": aux["loss_l1"].detach(),
+                    "loss_ssim": aux["loss_ssim"].detach(),
+                    "psnr": psnr(aux["rgb"].detach(), gt_image),
+                    "num_live": new_state.num_live(),
+                }
+                for k in ("loss_depth", "loss_opacity", "loss_density", "n_intersections",
+                          "n_dup_dropped", "n_tile_dropped"):
+                    if k in aux:
+                        v = aux[k]
+                        metrics[k] = v.detach() if torch.is_tensor(v) else v
+                if pose is not None:
+                    metrics["pose_grad"] = pose.grad  # (6,); the trainer runs its Adam
+                if app is not None:
+                    metrics["app_grad"] = app.grad  # (12,)
+                return StepOutput(new_state, opt_state, metrics, aux["rgb"].detach())
 
     return train_step
 

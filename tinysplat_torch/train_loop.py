@@ -77,6 +77,7 @@ from .train import (
 from .utils import profiling
 from .utils.device import synchronize
 from .utils.profiling import kernel_busy_share  # noqa: F401 (re-exported)
+from .utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -473,42 +474,45 @@ class Trainer:
             self._train_step()
 
     def _train_step(self) -> None:
-        cfg = self.cfg
-        self.step += 1
-        self._maybe_refresh_density_probe()
-        self._maybe_refresh_diffusion_views()
-        # 0-based sample index: step was just incremented.
-        camera = self.scene.get_random_camera(self.step - 1)
-        h, w = self._c2f_dims(camera)
-        gt = self._device_image(camera, w, h)
-        est_depth = None
-        if cfg.regularize_depth and camera.estimated_depth is not None:
-            est_depth = torch.as_tensor(camera.estimated_depth, dtype=torch.float32).to(
-                self.device)
-            if est_depth.shape != (h, w):  # coarse-to-fine stage
-                est_depth = torch.nn.functional.interpolate(
-                    est_depth[None, None], size=(h, w), mode="bilinear",
-                    align_corners=False, antialias=True)[0, 0]
-        slot = self._pose_slot(camera)
-        pose_delta = self.pose_deltas[slot] if cfg.pose_opt and slot is not None else None
-        app_param = self.app_params[slot] if cfg.app_opt and slot is not None else None
-        cam_params = self._scale_cam_params(camera.params(self.device), camera, h, w)
-        out = make_train_step(cfg, h, w)(
-            self.state, self.opt_state, cam_params, gt, est_depth, self.step,
-            generator=self.generator, pose_delta=pose_delta, app_params=app_param,
-            density_probe=self.density_probe)
-        self.state, self.opt_state = out.state, out.opt_state
-        self.last_rendered = out.rendered
-        self.last_metrics = dict(out.metrics)
-        if slot is not None and "pose_grad" in out.metrics:
-            g = out.metrics.pop("pose_grad")
-            _adam_row(self.pose_deltas, self._pose_m, self._pose_v, self._pose_cnt, slot,
-                      g, cfg.lr_pose)
-        if slot is not None and "app_grad" in out.metrics:
-            g = out.metrics.pop("app_grad")
-            _adam_row(self.app_params, self._app_m, self._app_v, self._app_cnt, slot, g,
-                      cfg.lr_app)
-        self._post_step(out)
+        with span("ts.trainer.step"):
+            cfg = self.cfg
+            self.step += 1
+            self._maybe_refresh_density_probe()
+            self._maybe_refresh_diffusion_views()
+            with span("ts.trainer.camera"):
+                # 0-based sample index: step was just incremented.
+                camera = self.scene.get_random_camera(self.step - 1)
+                h, w = self._c2f_dims(camera)
+                gt = self._device_image(camera, w, h)
+                est_depth = None
+                if cfg.regularize_depth and camera.estimated_depth is not None:
+                    est_depth = torch.as_tensor(camera.estimated_depth,
+                                                dtype=torch.float32).to(self.device)
+                    if est_depth.shape != (h, w):  # coarse-to-fine stage
+                        est_depth = torch.nn.functional.interpolate(
+                            est_depth[None, None], size=(h, w), mode="bilinear",
+                            align_corners=False, antialias=True)[0, 0]
+                slot = self._pose_slot(camera)
+                pose_delta = self.pose_deltas[slot] if cfg.pose_opt and slot is not None else None
+                app_param = self.app_params[slot] if cfg.app_opt and slot is not None else None
+                cam_params = self._scale_cam_params(camera.params(self.device), camera, h, w)
+            out = make_train_step(cfg, h, w)(
+                self.state, self.opt_state, cam_params, gt, est_depth, self.step,
+                generator=self.generator, pose_delta=pose_delta, app_params=app_param,
+                density_probe=self.density_probe)
+            with span("ts.trainer.post_step"):
+                self.state, self.opt_state = out.state, out.opt_state
+                self.last_rendered = out.rendered
+                self.last_metrics = dict(out.metrics)
+                if slot is not None and "pose_grad" in out.metrics:
+                    g = out.metrics.pop("pose_grad")
+                    _adam_row(self.pose_deltas, self._pose_m, self._pose_v, self._pose_cnt,
+                              slot, g, cfg.lr_pose)
+                if slot is not None and "app_grad" in out.metrics:
+                    g = out.metrics.pop("app_grad")
+                    _adam_row(self.app_params, self._app_m, self._app_v, self._app_cnt, slot,
+                              g, cfg.lr_app)
+                self._post_step(out)
 
     def _post_step(self, out) -> None:
         """Metrics, densify, compaction, budget retune, opacity reset, NaN
@@ -520,7 +524,8 @@ class Trainer:
                                out.metrics["n_tile_dropped"])
         self._maybe_densify()
         self._maybe_compact()
-        self._maybe_retune_budgets()
+        with span("ts.trainer.retune"):
+            self._maybe_retune_budgets()
         if (cfg.interval_opacity_reset > 0 and self.step % cfg.interval_opacity_reset == 0
                 and self.step <= cfg.densify_end
                 and cfg.densify_strategy != "mcmc"):  # MCMC regulates opacity itself
@@ -528,8 +533,10 @@ class Trainer:
                                                          opt_state=self.opt_state)
         # Host syncs are cadenced, never per step.
         if self.step % self.metrics.num_cameras == 0:
-            self.metrics.log(self.step, extra=f"N: {int(out.metrics['num_live'])}")
-        self._nan_guard(out.metrics["loss"])
+            with span("ts.trainer.log"):
+                self.metrics.log(self.step, extra=f"N: {int(out.metrics['num_live'])}")
+        with span("ts.trainer.nan_guard"):
+            self._nan_guard(out.metrics["loss"])
         self._maybe_checkpoint()
 
     def _checkpoint_extras(self) -> Optional[dict]:
@@ -684,7 +691,8 @@ class Trainer:
         """cfg.profile_steps N: trace steps [profile_start, profile_start + N)
         with ``torch.profiler`` (CUDA activity on a CUDA device), then print
         the top ops and the share of the window in which a kernel ran, and
-        write a Chrome trace to cfg.profile_dir."""
+        write a Chrome trace to ``<cfg.profile_dir>/<run timestamp>/trace.json``
+        (the checkpoints' timestamp)."""
         cfg = self.cfg
         if cfg.profile_steps <= 0:
             return
@@ -695,8 +703,9 @@ class Trainer:
             synchronize(self.device)
             prof, self._prof = self._prof, None
             prof.stop()
-            os.makedirs(cfg.profile_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
+            logdir = os.path.join(cfg.profile_dir, self._timestamp)
+            os.makedirs(logdir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
             table, share = profiling.print_window(
                 prof, self.device, f"profile window ({cfg.profile_steps} steps)")
             self.profile_summary = {"steps": cfg.profile_steps, "table": table,
@@ -777,17 +786,19 @@ class Trainer:
         """Inference render of ``camera`` (refined pose under pose_opt) at
         ``dims`` (w, h), default its own: (rgb, extras). Safe to call from a
         viewer thread while another thread trains (the trainer's lock)."""
-        w, h = dims if dims is not None else (camera.width, camera.height)
-        bg = background if background is not None else torch.zeros(3, device=self.device)
-        with self._lock, torch.no_grad():
-            state, cfg = self.state, self.cfg  # one consistent version
-            cam_params = camera.params(self.device)
-            slot = self._pose_slot(camera)
-            if slot is not None and self.pose_deltas is not None:
-                cam_params = apply_pose_delta(cam_params, self.pose_deltas[slot])
-            return render(state.params, state.alive, cam_params, h, w,
-                          state.active_sh_degree, bg, rasterizer=cfg.rasterizer,
-                          viewdirs_mode=cfg.viewdirs_mode, tile_size=cfg.tile_size,
-                          dup_capacity=cfg.dup_capacity, max_per_tile=cfg.max_per_tile,
-                          span_capacity=cfg.span_capacity, grad_reduce=cfg.grad_reduce,
-                          tile_x=cfg.tile_x, antialiased=cfg.antialiased)
+        with span("ts.trainer.render_camera"):
+            w, h = dims if dims is not None else (camera.width, camera.height)
+            bg = background if background is not None else torch.zeros(3, device=self.device)
+            with self._lock, torch.no_grad():
+                state, cfg = self.state, self.cfg  # one consistent version
+                with span("ts.trainer.camera"):
+                    cam_params = camera.params(self.device)
+                    slot = self._pose_slot(camera)
+                    if slot is not None and self.pose_deltas is not None:
+                        cam_params = apply_pose_delta(cam_params, self.pose_deltas[slot])
+                return render(state.params, state.alive, cam_params, h, w,
+                              state.active_sh_degree, bg, rasterizer=cfg.rasterizer,
+                              viewdirs_mode=cfg.viewdirs_mode, tile_size=cfg.tile_size,
+                              dup_capacity=cfg.dup_capacity, max_per_tile=cfg.max_per_tile,
+                              span_capacity=cfg.span_capacity, grad_reduce=cfg.grad_reduce,
+                              tile_x=cfg.tile_x, antialiased=cfg.antialiased)

@@ -1,4 +1,5 @@
-"""``torch.profiler`` windows: the top-ops table and the kernel-busy share.
+"""``torch.profiler`` windows: the program's spans, the top-ops table and the
+kernel-busy share.
 
 The port's counterpart of ``tinysplat_tpu.utils.profiling`` (trace capture)
 and ``tinysplat_tpu.utils.xplane.print_top_ops`` (the per-op table of a
@@ -15,16 +16,35 @@ trace). ``Trainer``'s profile window and the profiling tools
 - ``kernel_busy_share(prof)``: the share of the window in which a kernel ran.
 - ``print_window(prof, device, what)``: ``key_averages()``'s table by
   ``time_key(device)`` and the busy share, as the trainer prints them.
+- ``span(name)``: a ``record_function`` range named ``ts.<layer>...`` at a
+  layer boundary of the program, in the same trace as torch's ops and the
+  device's kernels (one clock). It is recorded exactly when a profiler
+  records the calling thread (``torch.autograd._profiler_enabled()``, which
+  is thread-local and which autograd carries into its device threads);
+  otherwise it is one shared null context, so an untraced step pays a flag
+  read per span. The ``ts.`` prefix tells the program's spans from torch's
+  own ranges.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from .device import synchronize
+
+_UNTRACED = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range ``name`` while a profiler records this thread, else
+    the shared null context. Names start with ``ts.``."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _UNTRACED
 
 
 def time_key(device) -> str:
