@@ -246,14 +246,32 @@ exits non-zero):
    B3 and B4 once per digit pass: two a binning at every full-size grid,
    one at 128x128 and 240x180 (``check_launches``).
 
+19. SSIM's kernels L1 (``ssim_fwd``) and L2 (``ssim_bwd``,
+   ``tinysplat_torch/ops/ssim_cuda.py``) at 1066x1600: (a) against their
+   plain versions on phase 6's trained frame and its ground truth, and on a
+   uniform image and a noisy copy (the map's absolute gap, the partials'
+   and both images' gradients over their max, under the mean's broadcast
+   upstream gradient and a random one; within ``ssim_cuda.TOL`` on the
+   uniform pair; on the frame, L2 within it and L1's map and L1 -> L2's
+   gradients no further from the float64 plain version than
+   ``SSIM_FRAME_RATIO`` x the float32 plain version), twice the same
+   bytes; (b) the
+   loss's ``ssim(...).backward()`` under
+   ``torch.cuda.set_sync_debug_mode("error")``, one L1 and one L2; (c)
+   their device times beside their byte bounds, the plain versions' and the
+   port's earlier cuDNN chain's (``cudnn_ssim``, the library yardstick; the
+   port never calls it). Every earlier counted window expects one L1 and
+   one L2 a training step and one more L1 an eval view
+   (``check_launches``).
+
 Phase 9 ends with the ``evaluate`` CLI on its step-12 checkpoint (every
 second view), whose per-view PSNR must equal ``Trainer.evaluate``'s to
 1e-3 dB.
 
-The line before the last is the kernels' JSON record (K1-K3's, S1's, S2's
-and B1-B4's launches sum the counted windows of phases 6, 10, 11, 12, 13,
-14, 15, 16, 17 and 18, ``launches_by_phase``; phase 11's sum the four ranks' training
-windows and phase 14's include scaling_bench's nine ranks); the last line is
+The line before the last is the kernels' JSON record (K1-K3's, S1's,
+S2's, B1-B4's and L1's and L2's launches sum the counted windows of phases 6, 10, 11, 12, 13, 14, 15, 16, 17 and 18,
+``launches_by_phase``; phase 11's sum the four ranks' training windows and
+phase 14's include scaling_bench's nine ranks); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -416,6 +434,12 @@ SPLAT_COMBOS = [(deg, aa, mode) for deg in (0, 3) for aa in (False, True)
                 for mode in ("reference", "position")]
 SPLAT_FWD_FLOP, SPLAT_BWD_FLOP = 500, 1500
 SPLAT_REPS = 5  # layer calls, frames and steps a way in phase 17 (d)
+SSIM_REPS = 50  # timed launches of L1 and L2 in phase 19 (c)
+# Phase 19's bar on a rendered frame, where float32 itself is 2.9e-4 off
+# the exact map (ssim_cuda.TOL): L1's map and L1 -> L2's gradients no further
+# from the float64 plain version than this many times the float32 plain
+# version is.
+SSIM_FRAME_RATIO = 2.0
 # B3 / B4's digit passes a binning at every full-size tile grid here (256 to
 # 65,535 tiles: ceil(log2(tiles + 1)) of 9-16 bits); checked in phase 18.
 RADIX_PASSES = 2
@@ -1060,12 +1084,15 @@ def probes_phase(torch):
 
 def counted_kernels(rc):
     """The kernel wrappers whose launches the script counts: K1-K3, the
-    splat-input kernels S1 and S2 and the binning kernels B1-B4."""
+    splat-input kernels S1 and S2, the binning kernels B1-B4 and SSIM's L1
+    and L2."""
     from tinysplat_torch.ops import binning_cuda as bc
     from tinysplat_torch.ops import splat_inputs_cuda as si
+    from tinysplat_torch.ops import ssim_cuda as sc
 
     return (rc.composite_fwd, rc.composite_bwd, rc.segsum, si.splat_fwd, si.splat_bwd,
-            bc.bin_count, bc.bin_emit, bc.radix_hist, bc.radix_scatter)
+            bc.bin_count, bc.bin_emit, bc.radix_hist, bc.radix_scatter, sc.ssim_fwd,
+            sc.ssim_bwd)
 
 
 def check_launches(got, want, label):
@@ -1077,13 +1104,19 @@ def check_launches(got, want, label):
     ``want["bins"]`` times where a window also bins outside a render; B3 and
     B4 once per digit pass of each binning: ``RADIX_PASSES`` (every
     full-size tile grid here) a binning, or ``want["radix"]`` in all where a
-    window's grids differ."""
+    window's grids differ. L1 and L2 run once each a training step (its
+    SSIM loss and that loss's backward): once a K2 launch, or
+    ``want["ssim"]`` times where a window's backwards are not all training
+    steps; L1 runs once more for each of ``want["evals"]`` eval views (an
+    SSIM with no backward)."""
     want = dict(want)
     bins = want.pop("bins", want["composite_fwd"])
     radix = want.pop("radix", RADIX_PASSES * bins)
+    steps = want.pop("ssim", want["composite_bwd"])
+    evals = want.pop("evals", 0)
     want = {"splat_fwd": want["composite_fwd"], "splat_bwd": want["composite_bwd"],
             "bin_count": bins, "bin_emit": bins, "radix_hist": radix, "radix_scatter": radix,
-            **want}
+            "ssim_fwd": steps + evals, "ssim_bwd": steps, **want}
     if got != want:
         raise AssertionError(f"{label}: expected launches {want}, counted {got}")
 
@@ -2337,7 +2370,8 @@ def quality_phase(torch, rc):
                 # K1: 36 GT views, the steps, 4 eval views at each eval and the
                 # last, the train-camera check, GT and model at half scale.
                 lambda o: {"composite_fwd": 36 + o["iters"] + 4 * (len(o["eval_history"]) + 1)
-                           + 1 + 2 * 4, "composite_bwd": o["iters"], "segsum": 0})
+                           + 1 + 2 * 4, "composite_bwd": o["iters"], "segsum": 0,
+                           "evals": 4 * (len(o["eval_history"]) + 1)})
             hist = qb["eval_history"]
             print(f"  (a) held-out PSNR {qb['value']} dB, SSIM {qb['eval_ssim']}, half scale "
                   f"{qb.get('multiscale_psnr')}; eval history {hist}; steps/s "
@@ -2395,7 +2429,8 @@ def quality_phase(torch, rc):
                 history=ah), lambda o: one_pass({
                     "composite_fwd": 12 + 2 * (o["iters"] + o["eval_views"])
                     + len(ah["guided"]._diffusion_guidance.cameras),
-                    "composite_bwd": 2 * o["iters"], "segsum": 0}))
+                    "composite_bwd": 2 * o["iters"], "segsum": 0,
+                    "evals": 2 * o["eval_views"]}))
             synth = ah["guided"]._diffusion_guidance.cameras
             print(f"  (c) plain {ab['plain']}, guided {ab['guided']}: delta {ab['value']} dB; "
                   f"{len(synth)} synthetic views at {synth[0].width}x{synth[0].height} in the "
@@ -2415,7 +2450,8 @@ def quality_phase(torch, rc):
                 REAL_ARGS + ["--scene-dir", scene_dir, "--out", os.path.join(tmp, "real.json")]),
                 lambda o: one_pass({  # 240x180: 48 tiles of 16x64
                     "composite_fwd": o["iters"] + 2 * (len(o["eval_history"]) + 1),
-                    "composite_bwd": o["iters"], "segsum": 0}))
+                    "composite_bwd": o["iters"], "segsum": 0,
+                    "evals": 2 * (len(o["eval_history"]) + 1)}))
             after = sorted((os.path.relpath(os.path.join(d, f), fixture),
                             os.path.getsize(os.path.join(d, f)))
                            for d, _, files in os.walk(fixture) for f in files)
@@ -2431,7 +2467,7 @@ def quality_phase(torch, rc):
             pr = run("(e) train_1m_probe", lambda: train_1m_probe.main(
                 PROBE_ARGS + ["--out", os.path.join(tmp, "probe.json")], history=eh),
                 lambda o: {"composite_fwd": 8 + 2 + o["steps"], "composite_bwd": o["steps"],
-                           "segsum": 0})
+                           "segsum": 0, "evals": 2})
             print(f"  (e) {pr['n_splats']} live splats at {pr['resolution']}: {pr['value']} "
                   f"steps/s; PSNR {pr['psnr_start']} -> {pr['psnr_end']}; losses "
                   f"{[round(x, 5) for x in eh['losses']]}; intersections "
@@ -2454,7 +2490,7 @@ def sweep_launches(lines, label, grads, k3):
         if "error" in line or line.get("tiles_per_block_read") is not False:
             raise AssertionError(f"{label}: {line}")
     return {"composite_fwd": grads * len(lines), "composite_bwd": grads * len(lines),
-            "segsum": k3}
+            "segsum": k3, "ssim": 0}
 
 
 def scaling_model_launches(o):
@@ -2477,8 +2513,9 @@ def scaling_model_launches(o):
     radix = 2 * (1 + it) * p64(H) + p16(H) + sum(
         t * (3 + max(it // 2, 8)) * p16(H // t) + (1 + it) * p64(H // t) + (2 + it) * p16(H // t)
         for t in bands)
+    # SSIM: the steps alone (plain, (1, 1) sharded, each band's sharded).
     return {"composite_fwd": k2 + 1 + sum(bands), "composite_bwd": k2, "segsum": 0,
-            "radix": radix}
+            "radix": radix, "ssim": (2 + len(bands)) * (1 + it)}
 
 
 def tools_phase(torch, rc):
@@ -2500,9 +2537,10 @@ def tools_phase(torch, rc):
         return {"composite_fwd": n, "composite_bwd": n, "segsum": k3}
 
     with tempfile.TemporaryDirectory() as tmp:
-        # (a) the bench scene's render gradient: warm-up + 3 under the profiler.
+        # (a) the bench scene's render gradient (no loss): warm-up + 3 under
+        # the profiler.
         pb = run("(a) profile_bench", lambda: profile_bench.main(
-            ["--logdir", os.path.join(tmp, "pb")]), lambda o: fwd_bwd(4))
+            ["--logdir", os.path.join(tmp, "pb")]), lambda o: dict(fwd_bwd(4), ssim=0))
         ops = [op for op, _, _ in pb["rows"]]
         share = pb["kernel_busy_share"]
         print(f"  (a) binning at profile_bench's budgets: {pb['binning']}; kernel-busy share "
@@ -2615,7 +2653,8 @@ def bench_phase(torch, rc):
         tpu = json.load(f)["parsed"]
     keys = set(tpu)
     iters = bench.arg_parser().get_default("iters")
-    per_run = bench.WARMUP + iters + 1 + max(iters // 2, 5)  # gradients + train steps
+    steps = 1 + max(iters // 2, 5)  # the train steps, each with its SSIM loss
+    per_run = bench.WARMUP + iters + steps  # render gradients + train steps
     for label, argv in BENCH_RUNS:
         hist, buf = {}, io.StringIO()
 
@@ -2625,7 +2664,8 @@ def bench_phase(torch, rc):
 
         record = run_counted(torch, rc, total, "phase 15", f"(a) bench {label}", run_bench,
                              lambda o: {"composite_fwd": per_run, "composite_bwd": per_run,
-                                        "segsum": per_run if label == "mxu" else 0})
+                                        "segsum": per_run if label == "mxu" else 0,
+                                        "ssim": steps})
         for line in buf.getvalue().strip().splitlines():
             print(f"    | {line}", flush=True)
         _, final = bench_lines(buf.getvalue(), keys, f"phase 15 {label}")
@@ -3058,6 +3098,159 @@ def splat_phase(torch, rc, tt, state, cam, train, opt, views, gts, cfg):
           flush=True)
     return rows, launches
 
+
+
+def cudnn_ssim(torch, x, y, window):
+    """The port's SSIM before L1 and L2, kept here as their library
+    yardstick (the port never calls it): one cuDNN blur of the stacked
+    channels x, y, x*x, y*y, x*y in full float32, the map by torch ops, the
+    backward by autograd (the blur's by transposed convolutions). (N, H, W,
+    C) in, (N, H', W', C) out; ``window`` a (11,) tensor on the card."""
+    from tinysplat_torch.ops import ssim_cuda as sc
+
+    xc, yc = x.permute(0, 3, 1, 2), y.permute(0, 3, 1, 2)
+    stacked = torch.cat([xc, yc, xc * xc, yc * yc, xc * yc], dim=1)
+    mu_x, mu_y, e_xx, e_yy, e_xy = sc._Blur.apply(stacked, window).chunk(5, dim=1)
+    s_xx, s_yy, s_xy = e_xx - mu_x * mu_x, e_yy - mu_y * mu_y, e_xy - mu_x * mu_y
+    c1, c2 = 0.01**2, 0.03**2
+    cs = (2 * s_xy + c2) / (s_xx + s_yy + c2)
+    smap = ((2 * mu_x * mu_y + c1) / (mu_x * mu_x + mu_y * mu_y + c1)) * cs
+    return smap.permute(0, 2, 3, 1)
+
+
+def ssim_phase(torch, img, gt):
+    """Phase 19: see the module docstring. ``img`` and ``gt`` are a trained
+    frame and its ground truth, (HEIGHT, WIDTH, 3) on the card. Returns L1's
+    and L2's rows of the kernels' JSON line (without launches)."""
+    from tinysplat_torch.ops import ssim_cuda as sc
+    from tinysplat_torch.ops.ssim import ssim
+    from tinysplat_torch.probes import timed_ms
+
+    phase_t0 = time.perf_counter()
+    print(f"phase 19: SSIM's kernels L1 and L2 ({gpu_name_and_limit()}) at {HEIGHT}x{WIDTH}",
+          flush=True)
+    window = sc.gaussian_window(11, 1.5)
+    c1, c2 = 0.01**2, 0.03**2
+    rng = np.random.default_rng(19)
+    u = torch.from_numpy(rng.uniform(0, 1, (1, HEIGHT, WIDTH, 3)).astype(np.float32)).cuda()
+    noisy = (u + 0.1 * torch.from_numpy(
+        rng.normal(size=tuple(u.shape)).astype(np.float32)).cuda()).clamp(0, 1)
+    pairs = {"frame vs GT": (img[None].contiguous(), gt[None].contiguous()),
+             "uniform vs noisy": (u, noisy)}
+    shape = (1, HEIGHT - 10, WIDTH - 10, 3)
+    g_rand = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+    g_mean = torch.full((), 1.0 / np.prod(shape), device="cuda").expand(shape)
+
+    # (a) L1 and L2 against their plain versions and the float64 plain
+    # version, twice the same bytes.
+    def gap(a, b, absolute=False):
+        d = float((a.double() - b.double()).abs().max())
+        return d if absolute else d / float(b.abs().max())
+
+    errs = {}
+    for label, (x, y) in pairs.items():
+        smap, parts = sc.ssim_fwd(x, y, window, c1, c2, 4)
+        again = sc.ssim_fwd(x, y, window, c1, c2, 4)
+        ref_map, ref_parts = sc.ssim_fwd_plain(x, y, window, c1, c2, 4)
+        map64, parts64 = sc.ssim_fwd_plain(x.double(), y.double(), window, c1, c2, 4)
+        same = same_bytes(torch, smap, again[0]) and same_bytes(torch, parts, again[1])
+        e = {"map": (gap(smap, ref_map, True), gap(smap, map64, True), gap(ref_map, map64, True))}
+        for k in range(4):
+            e[f"partial {k}"] = (gap(parts[k], ref_parts[k]), gap(parts[k], parts64[k]),
+                                 gap(ref_parts[k], parts64[k]))
+        for g_label, g in (("mean", g_mean), ("random", g_rand)):
+            for mu, me, other, who in ((sc.MU_X, x, y, "img1"), (sc.MU_Y, y, x, "img2")):
+                args = (g, ref_parts[mu], ref_parts[sc.E_XX], ref_parts[sc.E_XY], me, other,
+                        window)
+                got, twice = sc.ssim_bwd(*args), sc.ssim_bwd(*args)
+                chained = sc.ssim_bwd(g, parts[mu], parts[sc.E_XX], parts[sc.E_XY], me, other,
+                                      window)
+                ref = sc.ssim_bwd_plain(*args)
+                ref64 = sc.ssim_bwd_plain(g.double(), parts64[mu], parts64[sc.E_XX],
+                                          parts64[sc.E_XY], me.double(), other.double(), window)
+                plain_chain = sc.ssim_bwd_plain(g, ref_parts[mu], ref_parts[sc.E_XX],
+                                                ref_parts[sc.E_XY], me, other, window)
+                e[f"L2 {g_label} {who}"] = (gap(got, ref),)
+                e[f"L1->L2 {g_label} {who}"] = (gap(chained, ref), gap(chained, ref64),
+                                                gap(plain_chain, ref64))
+                same = same and same_bytes(torch, got, twice)
+        torch.cuda.synchronize()
+        errs[label] = e
+        over = int(((smap - ref_map).abs() > sc.TOL).sum())
+        print(f"  (a) {label}: twice the same bytes {same}; map past {sc.TOL:g} at {over} of "
+              f"{smap.numel()} positions, mean gap {float((smap - ref_map).mean()):.3e}; "
+              f"(vs plain, vs float64 plain, plain vs float64; the map absolute, the rest "
+              f"over the max): { {k: tuple(float(f'{v:.2e}') for v in t) for k, t in e.items()} }",
+              flush=True)
+        if not same:
+            raise AssertionError(f"phase 19: L1 or L2 gave other bytes twice ({label})")
+    bad = [k for k, t in errs["uniform vs noisy"].items()
+           if not k.startswith("partial") and t[0] > sc.TOL]
+    bad += [k for k, t in errs["frame vs GT"].items()
+            if (k == "map" or k.startswith("L1->L2")) and t[1] > SSIM_FRAME_RATIO * t[2]]
+    bad += [k for k, t in errs["frame vs GT"].items() if k.startswith("L2 ") and t[0] > sc.TOL]
+    if bad:
+        raise AssertionError(f"phase 19: L1 / L2 off their plain versions at {bad}: {errs}")
+
+    # (b) the loss's SSIM forward and backward: no host sync, one L1 and one L2.
+    x = img[None].clone().requires_grad_()
+    fwd, bwd = sc.ssim_fwd.launches, sc.ssim_bwd.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ssim(x[0], gt).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launched = (sc.ssim_fwd.launches - fwd, sc.ssim_bwd.launches - bwd)
+    print(f"  (b) ssim(frame, GT).backward(): no host sync; launches L1, L2 {launched}",
+          flush=True)
+    if launched != (1, 1):
+        raise AssertionError(f"phase 19: expected one L1 and one L2, got {launched}")
+
+    # (c) times at the frame's shapes (device time, median of SSIM_REPS).
+    x, y = pairs["frame vs GT"]
+    _, parts = sc.ssim_fwd(x, y, window, c1, c2, 3)
+    # The step's upstream gradient is a whole map (the mean's backward writes it).
+    bargs = (g_mean.contiguous(), parts[sc.MU_X], parts[sc.E_XX], parts[sc.E_XY], x, y, window)
+    l1_ms = timed_ms(lambda: sc.ssim_fwd(x, y, window, c1, c2, 3), SSIM_REPS, device_only=True)
+    l1_eval_ms = timed_ms(lambda: sc.ssim_fwd(x, y, window, c1, c2), SSIM_REPS,
+                          device_only=True)
+    l2_ms = timed_ms(lambda: sc.ssim_bwd(*bargs), SSIM_REPS, device_only=True)
+    plain_fwd = timed_ms(lambda: sc.ssim_fwd_plain(x, y, window, c1, c2, 3), 5,
+                         device_only=True)
+    plain_bwd = timed_ms(lambda: sc.ssim_bwd_plain(*bargs), 5, device_only=True)
+    win_t = torch.as_tensor(window, device="cuda")
+    xl = x.clone().requires_grad_()
+
+    def lib_fwd():
+        return cudnn_ssim(torch, xl, y, win_t).mean()
+
+    def lib_both():
+        lib_fwd().backward()
+
+    def port_both():
+        ssim(xl[0], y[0]).backward()
+
+    lib_fwd_ms = timed_ms(lib_fwd, 5, device_only=True)
+    lib_both_ms = timed_ms(lib_both, 5, device_only=True)
+    port_both_ms = timed_ms(port_both, 5, device_only=True)
+    b1, b2 = sc.layer_bytes(1, HEIGHT, WIDTH, 3)
+    frame_errs = errs["frame vs GT"]
+    rows = {"ssim_fwd": {"max_abs_err": frame_errs["map"][0], "ms": l1_ms,
+                         "plain_ms": plain_fwd, "bound_ms": 1e3 * b1 / HBM_BYTES_PER_S,
+                         "bound_by": "bytes", "library_ms": lib_fwd_ms},
+            "ssim_bwd": {"max_abs_err": max(t[0] for k, t in frame_errs.items()
+                                            if k.startswith("L2 ")), "ms": l2_ms,
+                         "plain_ms": plain_bwd, "bound_ms": 1e3 * b2 / HBM_BYTES_PER_S,
+                         "bound_by": "bytes", "library_ms": lib_both_ms - lib_fwd_ms}}
+    for name, r in rows.items():
+        print(f"  (c) {name}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by bytes "
+              f"({r['bound_ms'] / r['ms']:.1%}), plain {r['plain_ms']:.4f} ms, cuDNN chain "
+              f"{r['library_ms']:.4f} ms", flush=True)
+    print(f"  (c) L1 map only (eval) {l1_eval_ms:.4f} ms; ssim(frame, GT) forward and backward "
+          f"{port_both_ms:.4f} ms, the cuDNN chain's {lib_both_ms:.4f} ms; "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return rows
 
 
 def plain_binning(xys, depths, radii, valid, tiles_x, tiles_y, tile_size=16, chunk=128,
@@ -3645,6 +3838,11 @@ def main() -> int:
     # -- 18. the binning kernels B1-B4 ------------------------------------------------------------
     bin_rows, bin_launches = binning_phase(torch, rc, tt, state, cams[0], train, opt, views, gts,
                                            cfg)
+    # -- 19. SSIM's kernels L1 and L2 -------------------------------------------------------------
+    with torch.no_grad():
+        frame = render(train.params, train.alive, views[0], HEIGHT, WIDTH,
+                       train.active_sh_degree, bg, **RENDER_KW)[0]
+    ssim_rows = ssim_phase(torch, frame, gts[0])
     by_phase = {name: {"6": train_launches[name] if name != "segsum" else
                        mxu_launches["segsum"], "10": mesh_launches[name],
                        "11": shard_launches[name], "12": diffusion_launches[name],
@@ -3710,7 +3908,15 @@ def main() -> int:
         "launches_by_phase": by_phase[name],
         **bin_rows[name],
     } for name, line in (("bin_count", 236), ("bin_emit", 316), ("radix_hist", 395),
-                         ("radix_scatter", 395))]}
+                         ("radix_scatter", 395))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "tinysplat_torch/csrc/ssim.cu",
+        "replaces": "tinysplat_tpu/ops/ssim.py:55",
+        "launches": sum(by_phase[name].values()),
+        "launches_by_phase": by_phase[name],
+        **ssim_rows[name],
+    } for name in ("ssim_fwd", "ssim_bwd")]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

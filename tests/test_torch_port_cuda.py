@@ -11,7 +11,8 @@ the gradient terms differ), and two K2 launches byte for byte; K3 bit for
 bit, and two launches byte for byte (it adds each run in the plain
 version's order, with no atomics). The probes: P1 bit for
 bit (it moves bits as integers); P2 per row, as ``op_costs.TOLERANCE``
-states with its reasons.
+states with its reasons. SSIM's L1 and L2 as ``ssim_cuda.TOL`` states,
+and two launches byte for byte.
 """
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ import torch
 from tinysplat_torch.data.synthetic import orbit_cameras
 from tinysplat_torch.ops import rasterize_cuda as rc
 from tinysplat_torch.ops import splat_inputs_cuda as si
+from tinysplat_torch.ops import ssim_cuda as sc
 from tinysplat_torch.ops.sh import SH_C0, eval_sh
 from tinysplat_torch.probes import bitcast, op_costs
 
@@ -772,3 +774,129 @@ def test_tile_inputs_makes_no_host_sync():
     for a, b in zip(ti.bins, ref.bins):
         assert torch.equal(a, b)
     assert torch.equal(ti.table.view(torch.int32), ref.table.view(torch.int32))  # NaN rows too
+
+
+# SSIM's L1 and L2 (csrc/ssim.cu) against their plain versions: the bench
+# frame's 1600x1066, one 11x11 window, an odd width, N = 3 and a band with its
+# 10-row halo as the mesh step's interleaved mode stacks them. The map to
+# ssim_cuda.TOL absolute; both images' gradients to TOL x their max |plain|,
+# L2 alone (fed the plain partials) and L1's partials through L2 against the
+# plain chain (the window sums run in another order: see TOL); two launches
+# give the same bytes. The partials themselves are held through the
+# gradient: dS/dmu is a difference of terms some ten times its size, so the
+# moments' rounding shows there at ~1e-5 of its max in either version.
+SSIM_SHAPES = {"1600x1066": (1, 1066, 1600), "11x11": (1, 11, 11), "odd width": (1, 29, 53),
+               "N=3": (3, 24, 37), "band+halo": (4, 26, 48)}
+
+
+def _ssim_pair(n, h, w, seed):
+    """A uniform image and a noisy copy in [0, 1], on the card."""
+    _need_card()
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0, 1, (n, h, w, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    return torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+
+
+def _scaled_err(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
+
+
+def _same_bytes(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SSIM_SHAPES))
+def test_ssim_kernels_match_plain_and_repeat(name):
+    n, h, w = SSIM_SHAPES[name]
+    x, y = _ssim_pair(n, h, w, seed=h + w)
+    window = sc.gaussian_window(11, 1.5)
+    c1, c2 = 0.01**2, 0.03**2
+    before = sc.ssim_fwd.launches
+    smap, parts = sc.ssim_fwd(x, y, window, c1, c2, 4)
+    again = sc.ssim_fwd(x, y, window, c1, c2, 4)
+    only_map = sc.ssim_fwd(x, y, window, c1, c2)
+    assert sc.ssim_fwd.launches == before + 3 and only_map[1] is None
+    ref_map, ref_parts = sc.ssim_fwd_plain(x, y, window, c1, c2, 4)
+    torch.cuda.synchronize()
+    assert float((smap - ref_map).abs().max()) <= sc.TOL
+    assert _same_bytes(smap, again[0]) and _same_bytes(parts, again[1])
+    assert _same_bytes(smap, only_map[0])
+    g = torch.from_numpy(np.random.default_rng(h).normal(size=tuple(smap.shape))
+                         .astype(np.float32)).cuda()
+    for mu, me, other in ((sc.MU_X, x, y), (sc.MU_Y, y, x)):
+        args = (g, ref_parts[mu], ref_parts[sc.E_XX], ref_parts[sc.E_XY], me, other, window)
+        before = sc.ssim_bwd.launches
+        got, twice = sc.ssim_bwd(*args), sc.ssim_bwd(*args)
+        chained = sc.ssim_bwd(g, parts[mu], parts[sc.E_XX], parts[sc.E_XY], me, other, window)
+        assert sc.ssim_bwd.launches == before + 3
+        ref = sc.ssim_bwd_plain(*args)
+        torch.cuda.synchronize()
+        assert _scaled_err(got, ref) <= sc.TOL, mu
+        assert _scaled_err(chained, ref) <= sc.TOL, mu
+        assert _same_bytes(got, twice)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mean broadcast", "strided"])
+def test_ssim_bwd_reads_any_upstream_layout(kind):
+    """The mean's gradient as a stride-0 broadcast (read in place) and a
+    strided view (copied first) give the bytes of the same values laid out
+    contiguously."""
+    x, y = _ssim_pair(2, 40, 70, seed=7)
+    window = sc.gaussian_window(11, 1.5)
+    _, parts = sc.ssim_fwd(x, y, window, 1e-4, 9e-4, 3)
+    shape = (2, 30, 60, 3)
+    if kind == "mean broadcast":
+        g = torch.full((), 1.0 / 10_800, device="cuda").expand(shape)
+    else:
+        g = torch.randn((2, 30, 120, 3), device="cuda")[:, :, ::2]
+    args = (parts[sc.MU_X], parts[sc.E_XX], parts[sc.E_XY], x, y, window)
+    assert _same_bytes(sc.ssim_bwd(g, *args), sc.ssim_bwd(g.contiguous(), *args))
+
+
+@pytest.mark.cuda
+def test_ssim_makes_no_host_sync():
+    """SSIM forward and backward on the card queue without one host sync:
+    the window goes by value, nothing is read back."""
+    from tinysplat_torch.ops.ssim import ssim
+
+    x, y = (t[0] for t in _ssim_pair(1, 64, 96, seed=3))
+    x.requires_grad_()
+    ssim(x, y).backward()  # the library is built and loaded
+    torch.cuda.synchronize()
+    x.grad = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ssim(x, y).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+
+
+@pytest.mark.cuda
+def test_a_trainer_step_runs_ssim_through_l1_and_l2():
+    """One Trainer step on the card launches L1 once and L2 once (img1's
+    gradient only: the ground truth needs none)."""
+    _need_card()
+    from tinysplat_torch.config import Config
+    from tinysplat_torch.data.synthetic import synthetic_pcd
+    from tinysplat_torch.models.gaussians import init_from_pcd
+    from tinysplat_torch.scene import Scene
+    from tinysplat_torch.train_loop import Trainer
+
+    cams = orbit_cameras(2, width=128, height=96)
+    rng = np.random.default_rng(4)
+    for cam in cams:
+        cam._image = rng.uniform(0, 1, (96, 128, 3)).astype(np.float32)
+    pcd = synthetic_pcd(2000, seed=2)
+    state = init_from_pcd(pcd.xyz, pcd.colors, sh_degree=1, device="cuda")
+    tr = Trainer(Config(rasterizer="auto", sh_degree=1, warmup_densify=10**9,
+                        interval_opacity_reset=0, prefetch_images=False, seed=5),
+                 Scene(cams, seed=1), state)
+    tr.train_step()
+    fwd, bwd = sc.ssim_fwd.launches, sc.ssim_bwd.launches
+    tr.train_step()
+    torch.cuda.synchronize()
+    assert (sc.ssim_fwd.launches - fwd, sc.ssim_bwd.launches - bwd) == (1, 1)

@@ -13,7 +13,7 @@ installed: ``python -m pytest --noconftest tests/test_torch_port_spans.py``.
   one clock. Each launch of K1, K2, S1 and S2 lies inside the span named for
   its layer, and its kernel starts on the device after that span opened
   (launch and kernel matched by correlation id); the compositing backward's
-  span is recorded from autograd's device thread.
+  and SSIM's backward spans are recorded from autograd's device thread.
 """
 import re
 import threading
@@ -41,7 +41,9 @@ STEP_PARENT = {
     "ts.render.composite": "ts.train_step.forward",
     "ts.render.untile": "ts.train_step.forward",
     "ts.train_step.loss": "ts.train_step.forward",
+    "ts.ssim": "ts.train_step.loss",
     "ts.train_step.backward": "ts.train_step",
+    "ts.ssim.backward": "ts.train_step.backward",
     "ts.composite.backward": "ts.train_step.backward",
     "ts.composite.reduce": "ts.train_step.backward",
     "ts.splat_inputs.backward": "ts.train_step.backward",
@@ -125,6 +127,21 @@ def test_untraced_span_is_the_shared_null_context():
     assert [s[0] for s in recorded_spans(prof)] == ["ts.outer"]
 
 
+def test_op_range_is_an_operator_range_only_when_traced():
+    """``op_range`` (around the SSIM kernels' ctypes launches) is the null
+    context untraced, and under the profiler an operator-scope range (the
+    profiler links a launch's kernel to the innermost operator, never to a
+    span), nested in the span around it."""
+    assert profiling.op_range("ssim_bwd") is profiling._UNTRACED
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.span("ts.outer"):
+            with profiling.op_range("ssim_bwd"):
+                torch.ones(3).add_(1)
+    got = {e.name: e for e in prof.events() if e.name in ("ts.outer", "ssim_bwd")}
+    assert not got["ssim_bwd"].is_user_annotation and got["ts.outer"].is_user_annotation
+    assert got["ssim_bwd"].cpu_parent.name == "ts.outer"
+
+
 def test_a_step_and_a_frame_record_every_span_nested():
     tr = small_trainer()
     tr.train_step()  # step 1: past the first call's one-off work
@@ -160,11 +177,13 @@ def test_step_bit_equal_with_the_profiler_on_and_off():
         assert torch.equal(p0[k], p1[k]), k
 
 
-# The span each kernel's launch must lie in: K1, K2, S1, S2.
+# The span each kernel's launch must lie in: K1, K2, S1, S2, L1, L2.
 KERNEL_SPAN = {"composite_fwd_kernel": "ts.render.composite",
                "composite_bwd_kernel": "ts.composite.backward",
                "splat_fwd_kernel": "ts.render.splat_inputs",
-               "splat_bwd_kernel": "ts.splat_inputs.backward"}
+               "splat_bwd_kernel": "ts.splat_inputs.backward",
+               "ssim_fwd_kernel": "ts.ssim",
+               "ssim_bwd_kernel": "ts.ssim.backward"}
 
 
 @pytest.mark.cuda
@@ -201,3 +220,16 @@ def test_spans_share_the_device_clock_on_the_card():
     step_thread = {t for n, _, _, t in spans if n == "ts.trainer.step"}
     bwd_thread = {t for n, _, _, t in spans if n == "ts.composite.backward"}
     assert len(step_thread) == 1 and len(bwd_thread) == 1 and bwd_thread != step_thread
+    assert {t for n, _, _, t in spans if n == "ts.ssim.backward"} == bwd_thread
+    # The profiler's own op tree puts each SSIM kernel under its span too
+    # (what the benchmark's ssim_kernel_ms.train sums): L2 through its
+    # operator range, inside the span inside autograd's node.
+
+    def subtree(e):
+        return [k.name for k in e.kernels] + [n for c in e.cpu_children for n in subtree(c)]
+
+    for span_name, kernel in (("ts.ssim", "ssim_fwd_kernel"),
+                              ("ts.ssim.backward", "ssim_bwd_kernel")):
+        names = [n for e in prof.events() if e.name == span_name
+                 and e.device_type == torch.autograd.DeviceType.CPU for n in subtree(e)]
+        assert sum(kernel in n for n in names) == 1, (span_name, names)

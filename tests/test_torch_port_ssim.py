@@ -13,6 +13,7 @@ import torch
 from tinysplat_tpu.ops import ssim as jssim
 
 from tinysplat_torch.ops import ssim as tssim
+from tinysplat_torch.ops import ssim_cuda
 
 
 def _pair(h, w, noise, seed):
@@ -49,6 +50,6 @@ def test_blur_backward_is_the_adjoint_and_restores_tf32_flag():
     numerical differentiation, in float64; cuDNN's TF32 flag is as before."""
     flag = torch.backends.cudnn.allow_tf32
     x = torch.from_numpy(np.random.default_rng(0).uniform(size=(1, 2, 14, 17))).requires_grad_()
-    window = torch.from_numpy(tssim._gaussian_window(5, 1.5).astype(np.float64))
-    assert torch.autograd.gradcheck(lambda t: tssim._Blur.apply(t, window), (x,))
+    window = torch.from_numpy(ssim_cuda.gaussian_window(5, 1.5).astype(np.float64))
+    assert torch.autograd.gradcheck(lambda t: ssim_cuda._Blur.apply(t, window), (x,))
     assert torch.backends.cudnn.allow_tf32 == flag

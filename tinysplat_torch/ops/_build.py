@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("composite_fwd", "composite_bwd", "segsum", "probe_bitcast", "probe_op_costs",
-           "splat_fwd", "splat_bwd", "binning")
+           "splat_fwd", "splat_bwd", "binning", "ssim")
 # Flags of one source only. The splat-input and binning kernels round every
 # product and sum on its own, as the torch ops of their plain versions do
 # (the binning kernels also spell each rounding out with intrinsics).

@@ -101,6 +101,7 @@ def sharded_step_ms(mesh_shape, batch: int, height: int, width: int, means, colo
     from ..ops import binning_cuda as bc
     from ..ops import rasterize_cuda as rc
     from ..ops import splat_inputs_cuda as si
+    from ..ops import ssim_cuda as sc
     from ..parallel import make_mesh, make_sharded_train_step, rank_device, shard_state
     from ..parallel.train_step import band_rows
     from ..train import init_opt_state
@@ -122,7 +123,8 @@ def sharded_step_ms(mesh_shape, batch: int, height: int, width: int, means, colo
     fn = make_sharded_train_step(cfg, height, width, batch, mesh)
     generator = torch.Generator(device=dev)
     kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum, si.splat_fwd, si.splat_bwd,
-               bc.bin_count, bc.bin_emit, bc.radix_hist, bc.radix_scatter)
+               bc.bin_count, bc.bin_emit, bc.radix_hist, bc.radix_scatter, sc.ssim_fwd,
+               sc.ssim_bwd)
 
     def step(s):
         generator.manual_seed(0)

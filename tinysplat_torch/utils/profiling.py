@@ -24,6 +24,12 @@ trace). ``Trainer``'s profile window and the profiling tools
   otherwise it is one shared null context, so an untraced step pays a flag
   read per span. The ``ts.`` prefix tells the program's spans from torch's
   own ranges.
+- ``op_range(name)``: an operator-scope range around a kernel launched
+  through ctypes, recorded under the same condition. The profiler links a
+  kernel to the innermost *operator* open at its launch, never to a user
+  range such as a span; inside a Function's backward that operator is
+  autograd's node, which encloses the span, so without this range the
+  kernel's time would fall outside its span.
 """
 from __future__ import annotations
 
@@ -44,6 +50,14 @@ def span(name: str):
     the shared null context. Names start with ``ts.``."""
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
+    return _UNTRACED
+
+
+def op_range(name: str):
+    """An operator-scope profiler range ``name`` while a profiler records
+    this thread, else the shared null context."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
     return _UNTRACED
 
 
