@@ -13,14 +13,18 @@ general driver of the program under test that the mix's parameters steer:
   JPEG), one client waiting for each frame (a closed loop).
 
 Each driver returns a ``Run``: its end-to-end numbers, what the reference
-check needs, and what the traced window saw.
+check needs, and what the traced window saw. A training cell's check is
+its configuration's objective's (``objectives/``): ``check(TrainInputs)``;
+a serving cell's renders by the objective's ``render`` where it has one.
+A kind this file lacks is a file of ``drivers/`` (``spec.kind``).
 """
 from __future__ import annotations
 
 import gc
 import math
 import time
-from typing import Callable, Dict, List, NamedTuple, Optional
+from types import SimpleNamespace
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +46,30 @@ class Run(NamedTuple):
     call_s: float  # the measured window's seconds a step or frame
     work: Callable[[], List[dict]]  # the traced calls' counts (reference)
     notes: Dict[str, object]  # printed on an earlier line
+
+
+class TrainInputs(NamedTuple):
+    """What a training objective's ``check`` and ``reference`` are given.
+
+    ``program``, what the program did in the checked steps: ``losses`` (each
+    step's loss), ``grad`` and ``change`` (by leaf, the first gradient's norm
+    and the change's norm over the steps), ``terms`` (each step's ``loss_*``
+    metrics by name), ``live`` (the live count after each step), ``densify``
+    and ``probe`` (the Trainer's ``densify_history`` and ``probe_history``
+    entries of those steps). The control hands the reference's record in its
+    place.
+    """
+
+    trainee: Dict[str, torch.Tensor]  # the leaves the checked steps start from
+    cameras: List[R.Camera]  # each checked step's camera
+    gts: List[torch.Tensor]  # each checked step's ground truth (H, W, 3)
+    steps: List[int]  # the checked steps' numbers (1-based, as the Trainer counts)
+    seed: int  # inputs.seed64(--seed): Config.seed, the Trainer's generator's seed
+    config: dict  # the program's Config fields: the configuration's ``program``,
+    #               the mix's ``trainer`` over it, ``sh_degree``
+    tile: Tuple[int, int]  # tile height, width
+    device: torch.device
+    program: Optional[dict]  # what the program did in the checked steps
 
 
 def _sync(dev):
@@ -121,6 +149,21 @@ def ground_truth(cell, seed: int, views, dev) -> List[np.ndarray]:
     return out
 
 
+def train_inputs(cell, seed: int, views, gts, dev,
+                 program: Optional[dict] = None) -> TrainInputs:
+    """The checked steps of a training cell, as its objective is given them."""
+    t = cell.traffic
+    start = int(t["start_step"])
+    steps = list(range(start + 1, start + 1 + int(t["checked_steps"])))
+    idx = scene_cameras(len(views), seed, steps)
+    return TrainInputs(_trainee(cell, seed, dev), [R.camera(views[i], dev) for i in idx],
+                       [torch.as_tensor(gts[i], device=dev) for i in idx], steps,
+                       inputs.seed64(seed),
+                       dict(cell.config["program"], **t["trainer"],
+                            sh_degree=int(cell.config["sh_degree"])),
+                       _tiles(cell), dev, program)
+
+
 def scene_cameras(n: int, seed: int, steps) -> List[int]:
     """The view index of each 1-based step: a fresh permutation of the views
     an epoch, numpy's ``default_rng(seed + epoch)``, step s drawing index
@@ -152,11 +195,15 @@ def train(cell, seed: int, seconds: float, trace: bool, dev, t0: float) -> Run:
     del params
     marks["trainer"] = time.perf_counter() - t0
 
-    # The checked steps: the reference follows these from ``initial``.
-    losses, first_grad = [], None
+    # The checked steps: the objective's reference follows these from ``initial``.
+    losses, terms, live, first_grad = [], [], [], None
+    refines, probes = len(trainer.densify_history), len(trainer.probe_history)
     for i in range(int(t["checked_steps"])):
         trainer.train_step()
-        losses.append(trainer.last_metrics["loss"].detach().clone())
+        m = trainer.last_metrics
+        losses.append(m["loss"].detach().clone())
+        terms.append({k: v.clone() for k, v in m.items() if k.startswith("loss_")})
+        live.append(trainer.state.num_live())
         if i == 0:
             mu = trainer.opt_state.moments()[0]
             first_grad = {k: (mu[k] / (1.0 - RT.BETAS[0])).norm() for k in inputs.LEAVES}
@@ -164,7 +211,11 @@ def train(cell, seed: int, seconds: float, trace: bool, dev, t0: float) -> Run:
     change = {k: (getattr(state, k).detach() - initial[k]).norm() for k in inputs.LEAVES}
     checked = dict(losses=[float(x) for x in losses],
                    grad={k: float(v) for k, v in first_grad.items()},
-                   change={k: float(v) for k, v in change.items()})
+                   change={k: float(v) for k, v in change.items()},
+                   terms=[{k: float(v) for k, v in d.items()} for d in terms],
+                   live=[int(x) for x in live],
+                   densify=[dict(e) for e in trainer.densify_history[refines:]],
+                   probe=[dict(e) for e in trainer.probe_history[probes:]])
     del initial
     marks["checked"] = time.perf_counter() - t0
     for _ in range(int(t["warmup_steps"])):
@@ -177,6 +228,7 @@ def train(cell, seed: int, seconds: float, trace: bool, dev, t0: float) -> Run:
 
     live0, inter0 = diag()
     rollbacks0 = trainer._rollbacks
+    refines, probes = len(trainer.densify_history), len(trainer.probe_history)
     prof, traced_steps, snapshot, ends = None, [], None, []
     t_start = time.perf_counter()
     steps = 0
@@ -208,6 +260,8 @@ def train(cell, seed: int, seconds: float, trace: bool, dev, t0: float) -> Run:
                  first_third_ms=1e3 * (ends[third - 1] - t_start) / third,
                  last_third_ms=1e3 * (ends[-1] - ends[-third - 1]) / third,
                  step_at_end=trainer.step,
+                 refine_passes=len(trainer.densify_history) - refines,
+                 probe_refreshes=len(trainer.probe_history) - probes,
                  budgets={k: getattr(trainer.cfg, k) for k in _budgets(cell)})
     failed = trainer._rollbacks - rollbacks0
     peak = _peak(dev)
@@ -217,20 +271,9 @@ def train(cell, seed: int, seconds: float, trace: bool, dev, t0: float) -> Run:
     del prof
 
     th, tw = _tiles(cell)
-    lrs = {k: float(t["trainer"][f"lr_{k}"]) for k in inputs.LEAVES}
 
     def check() -> Dict[str, float]:
-        n = int(t["checked_steps"])
-        idx = scene_cameras(len(views), seed, range(start + 1, start + 1 + n))
-        g = torch.Generator(device=dev).manual_seed(inputs.seed64(seed))
-        bgs = [torch.rand(3, generator=g, device=dev) for _ in range(n)]
-        init = _trainee(cell, seed, dev)
-        rec = RT.train_steps(init, [R.camera(views[i], dev) for i in idx],
-                             [torch.as_tensor(gts[i], device=dev) for i in idx], bgs, lrs,
-                             float(t["trainer"]["lambda_dssim"]), th, tw)
-        ref_change = {k: float((rec.params[k] - init[k]).norm()) for k in inputs.LEAVES}
-        ref_grad = {k: float(v.norm()) for k, v in rec.first_grad.items()}
-        return compare_train(checked, rec.losses, ref_grad, ref_change)
+        return cell.objective.check(train_inputs(cell, seed, views, gts, dev, checked))
 
     def work() -> List[dict]:
         if snapshot is None:
@@ -246,25 +289,6 @@ def train(cell, seed: int, seconds: float, trace: bool, dev, t0: float) -> Run:
 
     return Run({"train_step_ms": 1e3 * window / steps}, steps, failed, peak, check, traced,
                len(traced_steps), window / steps, work, notes)
-
-
-def compare_train(prog: dict, ref_losses, ref_grad, ref_change) -> Dict[str, float]:
-    """The three numbers of a training cell's check, program against
-    reference: the worst step's relative loss gap; and by the worst leaf, the
-    gap between the two norms of the first gradient, and of the parameters'
-    change over the checked steps, each over the reference's norm of that
-    leaf or of the median leaf, whichever is larger. Leaves whose reference
-    gradient is under a thousandth of the median leaf's move by round-off
-    alone and are left out of the change."""
-    loss_gap = max(abs(p - r) / abs(r) for p, r in zip(prog["losses"], ref_losses))
-    med_g = float(np.median(list(ref_grad.values())))
-    med_c = float(np.median(list(ref_change.values())))
-    grad_gap = max(abs(prog["grad"][k] - ref_grad[k]) / max(ref_grad[k], med_g)
-                   for k in ref_grad)
-    moved = [k for k in ref_change if ref_grad[k] >= 1e-3 * med_g]
-    change_gap = max(abs(prog["change"][k] - ref_change[k]) / max(ref_change[k], med_c)
-                     for k in moved)
-    return {"loss_gap": loss_gap, "grad_gap": grad_gap, "change_gap": change_gap}
 
 
 def serve(cell, seed: int, seconds: float, trace: bool, dev, t0: float) -> Run:
@@ -346,6 +370,8 @@ def serve(cell, seed: int, seconds: float, trace: bool, dev, t0: float) -> Run:
     del prof
     th, tw = _tiles(cell)
 
+    render = reference_render(cell)
+
     def check() -> Dict[str, float]:
         p = _trainee(cell, seed, dev)
         if len(kept) < len(target):  # a sampled frame never came in the window
@@ -353,7 +379,7 @@ def serve(cell, seed: int, seconds: float, trace: bool, dev, t0: float) -> Run:
         gaps_max, gaps_mean = [], []
         with RT.full_float32(), torch.no_grad():
             for pose, img in sorted(kept.items()):
-                ref, _ = R.render(p, R.camera(poses[pose], dev), black, th, tw)
+                ref, _ = render(p, R.camera(poses[pose], dev), black, th, tw)
                 d = (torch.as_tensor(img, device=dev) - ref).abs()
                 gaps_max.append(float(d.max()))
                 gaps_mean.append(float(d.mean()))
@@ -375,4 +401,51 @@ def serve(cell, seed: int, seconds: float, trace: bool, dev, t0: float) -> Run:
                notes)
 
 
-DRIVERS = {"train": train, "serve": serve}
+def reference_render(cell):
+    """The render a serving cell's check follows: its objective's, else the
+    plain reference's."""
+    return getattr(cell.objective, "render", R.render)
+
+
+def train_control(cell, seed: int, dev) -> Dict[str, float]:
+    """The objective's ``reference`` in TF32 stands as the program's record
+    of the checked steps, and its ``check`` judges it."""
+    views = inputs.training_views(cell.config, cell.traffic)
+    base = train_inputs(cell, seed, views, ground_truth(cell, seed, views, dev), dev)
+    with R.tf32():
+        low = cell.objective.reference(base)
+    return cell.objective.check(base._replace(program=low))
+
+
+@torch.no_grad()
+def serve_control(cell, seed: int, dev) -> Dict[str, float]:
+    """The check's sampled poses rendered in TF32, against float32."""
+    t = cell.traffic
+    poses = inputs.novel_poses(cell.config, t)
+    rng = np.random.default_rng(inputs.seed64(seed))
+    sample = rng.choice(len(poses), size=int(t["checked_frames"]), replace=False)
+    p = _trainee(cell, seed, dev)
+    th, tw = _tiles(cell)
+    render = reference_render(cell)
+    bg = torch.tensor(t["background"], dtype=torch.float32, device=dev)
+    gmax, gmean = [], []
+    with RT.full_float32():
+        for pose in sorted(int(x) for x in sample):
+            cam = R.camera(poses[pose], dev)
+            ref, _ = render(p, cam, bg, th, tw)
+            with R.tf32():
+                low, _ = render(p, cam, bg, th, tw)
+            d = (low - ref).abs()
+            gmax.append(float(d.max()))
+            gmean.append(float(d.mean()))
+    return {"frame_max_gap": max(gmax), "frame_mean_gap": max(gmean)}
+
+
+# The kinds this file drives, each as a ``drivers/<kind>.py`` file gives
+# one (``spec.kind``): ``run``, the names its check returns where the
+# configuration's objective does not give them, and the ``control``.
+KINDS = {
+    "train": SimpleNamespace(run=train, CHECKS=(), control=train_control),
+    "serve": SimpleNamespace(run=serve, CHECKS=("frame_max_gap", "frame_mean_gap"),
+                             control=serve_control),
+}

@@ -12,7 +12,7 @@
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, NamedTuple
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -74,9 +74,13 @@ class StepRecord(NamedTuple):
 
 def train_steps(params: Dict[str, torch.Tensor], cams: List[R.Camera], gts: List[torch.Tensor],
                 backgrounds: List[torch.Tensor], lrs: Dict[str, float], lambda_dssim: float,
-                tile_h: int, tile_w: int) -> StepRecord:
+                tile_h: int, tile_w: int,
+                extra: Optional[Callable[[Dict[str, torch.Tensor], int], torch.Tensor]] = None
+                ) -> StepRecord:
     """Steps from ``params`` (leaf name -> tensor; left untouched), one a
-    camera, each on its ground truth and background."""
+    camera, each on its ground truth and background. ``extra(params, i)``,
+    where given, is a further term of step i's loss (i from 1), such as an
+    objective's regulariser."""
     p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
     m = {k: torch.zeros_like(v) for k, v in p.items()}
     v2 = {k: torch.zeros_like(v) for k, v in p.items()}
@@ -85,6 +89,8 @@ def train_steps(params: Dict[str, torch.Tensor], cams: List[R.Camera], gts: List
         for i, (cam, gt, bg) in enumerate(zip(cams, gts, backgrounds), start=1):
             img, _ = R.render(p, cam, bg, tile_h, tile_w)
             loss = loss_fn(img, gt, lambda_dssim)
+            if extra is not None:
+                loss = loss + extra(p, i)
             grads = torch.autograd.grad(loss, list(p.values()))
             losses.append(float(loss.detach()))
             if first is None:

@@ -4,7 +4,8 @@
 
 Set-up (imports, the inputs made from the seed, the program's kernels
 loaded or built, the cell's warm-up) is ``setup_s``; then the cell's driver
-(``cells.py``, chosen by the traffic mix's ``kind``) measures for
+(``cells.py`` or ``drivers/<kind>.py``, chosen by the traffic mix's
+``kind``) measures for
 ``--seconds``. With ``--trace 1`` a profiler window of a few steps or frames
 sits in the middle of the window and the line carries the per-layer
 metrics, ``busy_s`` / ``window_s`` and a ``breakdown``; with ``--trace 0``
@@ -16,7 +17,7 @@ error and last in the line, under ``checks``.
 Exits non-zero with no result line when CUDA is not available or has
 fewer cards than the cell asks for, and when a JAX module (``jax``,
 ``jaxlib``, ``flax``, ``optax``, ``tinysplat_tpu``) is loaded once the
-window has closed. A run that is not correct prints its line with
+window has closed or once the check and the per-layer readers have run. A run that is not correct prints its line with
 ``correct: false`` and exits 0.
 """
 from __future__ import annotations
@@ -68,7 +69,7 @@ def main(argv=None, device=None, cell=None) -> int:
     args = parse(argv)
     import torch
 
-    from . import cells, spec
+    from . import spec
 
     imported = time.perf_counter() - T0
 
@@ -82,8 +83,7 @@ def main(argv=None, device=None, cell=None) -> int:
         device = torch.device("cuda", 0)
     torch.manual_seed(0)
     torch.set_num_threads(1)  # one busy host thread: the driver's
-    driver = cells.DRIVERS[cell.traffic["kind"]]
-    run = driver(cell, args.seed, args.seconds, bool(args.trace), device, T0)
+    run = cell.driver(cell, args.seed, args.seconds, bool(args.trace), device, T0)
     setup_s = run.notes["setup_s"]
     run.notes["setup_marks"] = dict(imported=imported, **run.notes["setup_marks"])
     if device.type == "cuda":
@@ -99,8 +99,8 @@ def main(argv=None, device=None, cell=None) -> int:
     print("window: " + json.dumps(run.notes, default=str), flush=True)
 
     checks = run.check()
-    correct = all(math.isfinite(v) and v <= cell.limits[k] for k, v in checks.items())
-    correct = correct and run.failed == 0
+    correct = set(checks) == set(cell.limits) and run.failed == 0 and all(
+        math.isfinite(v) and v <= cell.limits[k] for k, v in checks.items())
 
     kind = device.type
     dev_info = {"platform": "gpu" if kind == "cuda" else kind,
@@ -124,9 +124,16 @@ def main(argv=None, device=None, cell=None) -> int:
                 metrics[m["name"]] = {"value": float(values[m["name"]]), "unit": m["unit"]}
     line["metrics"] = metrics
     line["device"] = dev_info
-    line["checks"] = {k: {"value": v, "limit": cell.limits[k]} for k, v in checks.items()}
+    # Again once the check and the readers have run: an objective, a driver
+    # or a metric loaded by path may have pulled JAX in.
+    loaded = forbidden_loaded()
+    if loaded:
+        print(f"splatbench: JAX modules loaded in the benchmark's process: {loaded}; "
+              "no result", file=sys.stderr)
+        return 3
+    line["checks"] = {k: {"value": v, "limit": cell.limits.get(k)} for k, v in checks.items()}
     for k, v in checks.items():
-        print(f"check {k}: {v!r} (limit {cell.limits[k]!r})", file=sys.stderr, flush=True)
+        print(f"check {k}: {v!r} (limit {cell.limits.get(k)!r})", file=sys.stderr, flush=True)
     print(json.dumps(line), flush=True)
     return 0
 

@@ -2,7 +2,7 @@
 TF32, fails the cell's limits, at a size a test run holds."""
 import pytest
 
-from splatbench import control, spec
+from splatbench import spec
 
 pytestmark = pytest.mark.cuda
 
@@ -13,8 +13,8 @@ def small(name):
     return c._replace(config=cfg)
 
 
-@pytest.mark.parametrize("name", ["train.splats-262k", "serve.splats-1m"])
+@pytest.mark.parametrize("name", ["train.splats-262k", "serve.splats-1m", "train.splats-1m"])
 def test_control_fails_the_limits(card, name):
     cell = small(name)
-    out = control.CONTROLS[cell.traffic["kind"]](cell, 20260101, card)
+    out = spec.kind(cell.traffic["kind"]).control(cell, 20260101, card)
     assert any(v > cell.limits[k] for k, v in out.items()), out

@@ -1,5 +1,6 @@
 """No module of splatbench imports JAX or the JAX package, and the
-reference imports nothing of the program: top-level names compared whole."""
+reference and the objectives import nothing of the program: top-level
+names compared whole."""
 import ast
 from pathlib import Path
 
@@ -25,8 +26,9 @@ def test_no_jax(path):
     assert not set(top_names(path)) & FORBIDDEN
 
 
-@pytest.mark.parametrize("path", sorted((HERE / "reference").rglob("*.py")),
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted((HERE / "reference").rglob("*.py"))
+                         + sorted((HERE / "objectives").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(HERE)))
 def test_reference_takes_nothing_of_the_program(path):
     assert "tinysplat_torch" not in set(top_names(path))
 

@@ -82,5 +82,37 @@ def test_discovery_by_name(tmp_path):
     assert set(c.limits) == {"loss_gap", "grad_gap", "change_gap"}
     s = spec.cell("serve.splats-1m")
     assert s.config["n_splats"] == 1_000_000 and s.traffic["poses"] == 120
+    t = spec.cell("train.splats-1m")
+    assert t.config is not c.config and t.config["n_splats"] == 1_000_000
+    assert t.traffic == c.traffic and t.driver is c.driver
     with pytest.raises(KeyError):
         spec.cell("no.such-cell")
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in B["workloads"]])
+def test_each_cell_finds_its_objective_and_driver(cell):
+    c = spec.cell(cell)
+    obj = c.config.get("objective", "plain")
+    assert (ROOT / "splatbench" / "objectives" / f"{obj}.py").is_file()
+    assert c.objective.__name__ == f"splatbench.objectives.{obj}" and callable(c.driver)
+    k = spec.kind(c.traffic["kind"])
+    assert k.run is c.driver and callable(k.control)
+    if c.traffic["kind"] == "train":
+        assert set(c.limits) == set(c.objective.CHECKS)
+        assert callable(c.objective.check) and callable(c.objective.reference)
+
+
+def test_no_objective_or_driver_no_cell(tmp_path):
+    import shutil
+
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    shutil.copytree(ROOT / "splatbench", tmp_path / "splatbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    conf = tmp_path / "splatbench" / "configs" / "splats-262k.json"
+    conf.write_text(json.dumps(dict(json.loads(conf.read_text()), objective="no-such")))
+    with pytest.raises(FileNotFoundError, match="no-such"):
+        spec.cell("train.splats-262k", root=tmp_path)
+    mix = tmp_path / "splatbench" / "traffic" / "serve-orbit.json"
+    mix.write_text(json.dumps(dict(json.loads(mix.read_text()), kind="no-such-kind")))
+    with pytest.raises(FileNotFoundError, match="no-such-kind"):
+        spec.cell("serve.splats-1m", root=tmp_path)
