@@ -34,7 +34,9 @@ def _jax_parser():
 def test_flag_parity_with_the_jax_cli():
     jax_actions = {a.dest: a for a in _jax_parser()._actions if a.dest != "help"}
     port_actions = {a.dest: a for a in train_cli.arg_parser()._actions if a.dest != "help"}
-    assert set(port_actions) == set(jax_actions)
+    # The port's own option is a flag of its own.
+    assert set(port_actions) == set(jax_actions) | {"mcmc_refine_every"}
+    assert port_actions["mcmc_refine_every"].default == 0
     for dest, ja in jax_actions.items():
         pa = port_actions[dest]
         assert pa.option_strings == ja.option_strings, dest

@@ -269,7 +269,8 @@ def test_quality_bench_schedule_split_and_config_match_jax(capsys, monkeypatch, 
     assert [c.name for c in pt.eval_cameras] == [c.name for c in jt.eval_cameras]
     assert len(pt.scene.cameras) == 4 and len(pt.eval_cameras) == 2
     assert sorted(pt._image_cache) == sorted(jt._image_cache)
-    assert dataclasses.asdict(pt.cfg) == dataclasses.asdict(jt.cfg)
+    # The port's own option at its default.
+    assert dataclasses.asdict(pt.cfg) == dict(dataclasses.asdict(jt.cfg), mcmc_refine_every=0)
     assert set(got) == set(ref)
     varying = ("eval_history", "steps_per_s", "train_minutes", "gt_rasterizer")
     assert {k: v for k, v in got.items() if k not in varying} == \

@@ -8,6 +8,9 @@ installed: ``python -m pytest --noconftest tests/test_torch_port_spans.py``.
 - Under ``torch.profiler`` on the CPU, a ``Trainer`` step and a
   ``render_camera`` record every span at its layer boundary, each inside the
   span of the layer that called it.
+- Under ``densify_strategy="mcmc"`` a step also records the noise's and the
+  sparsity terms' spans, and a refine step the relocation's; a plain step
+  records none of the three.
 - A step's loss and parameters are bit-equal with the profiler on and off.
 - On the card (skipped elsewhere): the spans and the device's kernels share
   one clock. Each launch of K1, K2, S1 and S2 lies inside the span named for
@@ -155,6 +158,38 @@ def test_a_step_and_a_frame_record_every_span_nested():
     with torch.profiler.profile(activities=cpu) as prof:
         tr.render_camera(tr.scene.cameras[0])
     assert set(parents(recorded_spans(prof))) == set(FRAME_PARENT.items())
+
+
+# 3DGS-MCMC's spans and the span each opens inside.
+MCMC_PARENT = {
+    "ts.train_step.mcmc_sparsity": "ts.train_step.loss",
+    "ts.train_step.mcmc_noise": "ts.train_step.accum",
+    "ts.trainer.mcmc_relocate": "ts.trainer.post_step",
+}
+
+
+def test_mcmc_steps_record_their_spans_and_plain_steps_none():
+    cpu = [torch.profiler.ProfilerActivity.CPU]
+    tr = small_trainer(densify_strategy="mcmc", mcmc_refine_every=4, warmup_densify=0)
+    got = {}
+    for step in (1, 2, 3, 4):  # steps 2 and 4 traced, epoch boundaries; 4 refines
+        if step % 2:
+            tr.train_step()
+            continue
+        with torch.profiler.profile(activities=cpu) as prof:
+            tr.train_step()
+        got[step] = set(parents(recorded_spans(prof)))
+    assert [e["step"] for e in tr.densify_history] == [4]
+    every = set(STEP_PARENT.items())
+    step_only = {(k, v) for k, v in MCMC_PARENT.items() if k != "ts.trainer.mcmc_relocate"}
+    assert got[2] == every | step_only, sorted(got[2] ^ (every | step_only))
+    assert got[4] == every | set(MCMC_PARENT.items()), sorted(got[4] ^ every)
+    plain = small_trainer(warmup_densify=0, mcmc_refine_every=4)
+    plain.train_step()
+    with torch.profiler.profile(activities=cpu) as prof:
+        plain.train_step()
+        plain.train_step()
+    assert not {n for n, _ in parents(recorded_spans(prof))} & set(MCMC_PARENT)
 
 
 def test_step_bit_equal_with_the_profiler_on_and_off():

@@ -1,12 +1,13 @@
 """Typed training configuration: a copy of ``tinysplat_tpu.config.Config``.
 
 Same field names and defaults as the JAX package's dataclass, so a config
-written for one package reads the same in the other. ``tiles_per_block``,
-which only the JAX package's TPU path reads, is kept for that parity; the
-mesh and multi-process fields drive ``parallel.MeshTrainer`` and
-``train_cli``'s process group; the port's render path reads
-``rasterizer``, ``tile_size``, ``tile_x``, the binning budgets,
-``antialiased`` and ``viewdirs_mode``, its train step
+written for one package reads the same in the other, plus the port's own
+``mcmc_refine_every``, whose default keeps the JAX package's behaviour.
+``tiles_per_block``, which only the JAX package's TPU path reads, is kept
+for that parity; the mesh and multi-process fields drive
+``parallel.MeshTrainer`` and ``train_cli``'s process group; the port's
+render path reads ``rasterizer``, ``tile_size``, ``tile_x``, the binning
+budgets, ``antialiased`` and ``viewdirs_mode``, its train step
 (``train.make_train_step``) the learning rates, loss weights, regularizer
 windows, ``grad_reduce``, ``sh_degree`` / ``sh_increment_interval``,
 ``warmup_grad``, ``background`` and ``pose_opt`` / ``app_opt``, and its
@@ -182,6 +183,10 @@ class Config:
     profile_start: int = 20
     profile_dir: str = "/tmp/tinysplat_trace"
     mcmc_cap: int = 0  # target live-splat cap (0 = the capacity)
+    # MCMC refine cadence (gsplat's refine_every): a pass on every step that
+    # is a multiple of it inside [warmup_densify, densify_end]; 0 = the
+    # densify interval (the camera count, as the reference overrides it).
+    mcmc_refine_every: int = 0
     mcmc_min_opacity: float = 0.005  # below this, a splat is relocated
     mcmc_growth_factor: float = 1.05  # live-count growth per refine pass
     mcmc_noise_lr: float = 5e5  # noise scale x current means LR (gsplat)

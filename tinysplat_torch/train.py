@@ -289,17 +289,18 @@ def compute_losses(
             aux["loss_density"] = loss_density
 
         if cfg.densify_strategy == "mcmc":  # 3DGS-MCMC sparsity regularizers
-            n_live = torch.clamp(state.alive.sum(), min=1)
-            if cfg.lambda_mcmc_opacity > 0:
-                o = torch.sigmoid(params.opacities.reshape(-1))
-                loss_mo = torch.where(state.alive, o, 0.0).sum() / n_live
-                loss = loss + cfg.lambda_mcmc_opacity * loss_mo
-                aux["loss_mcmc_opacity"] = loss_mo
-            if cfg.lambda_mcmc_scale > 0:
-                s = torch.exp(params.scales)
-                loss_ms = torch.where(state.alive[:, None], s, 0.0).sum() / (3 * n_live)
-                loss = loss + cfg.lambda_mcmc_scale * loss_ms
-                aux["loss_mcmc_scale"] = loss_ms
+            with span("ts.train_step.mcmc_sparsity"):
+                n_live = torch.clamp(state.alive.sum(), min=1)
+                if cfg.lambda_mcmc_opacity > 0:
+                    o = torch.sigmoid(params.opacities.reshape(-1))
+                    loss_mo = torch.where(state.alive, o, 0.0).sum() / n_live
+                    loss = loss + cfg.lambda_mcmc_opacity * loss_mo
+                    aux["loss_mcmc_opacity"] = loss_mo
+                if cfg.lambda_mcmc_scale > 0:
+                    s = torch.exp(params.scales)
+                    loss_ms = torch.where(state.alive[:, None], s, 0.0).sum() / (3 * n_live)
+                    loss = loss + cfg.lambda_mcmc_scale * loss_ms
+                    aux["loss_mcmc_scale"] = loss_ms
 
     return loss, aux
 
@@ -363,12 +364,13 @@ def make_train_step(cfg: Config, img_height: int, img_width: int):
                     from .models import densify_mcmc
 
                     lr_scaler = cfg.mcmc_noise_lr * means_lr_at(cfg, step)
-                    if noise_eps is None:
-                        densify_mcmc.inject_noise(state.params, state.alive, lr_scaler, cfg,
-                                                  generator)
-                    else:
-                        densify_mcmc.apply_noise(state.params, state.alive, noise_eps, lr_scaler,
-                                                 cfg)
+                    with span("ts.train_step.mcmc_noise"):
+                        if noise_eps is None:
+                            densify_mcmc.inject_noise(state.params, state.alive, lr_scaler,
+                                                      cfg, generator)
+                        else:
+                            densify_mcmc.apply_noise(state.params, state.alive, noise_eps,
+                                                     lr_scaler, cfg)
 
                 # Densification signal: ||dL/d(screen xy)|| past the warm-up.
                 accum = state.means_grad_accum
@@ -383,8 +385,9 @@ def make_train_step(cfg: Config, img_height: int, img_width: int):
                     "psnr": psnr(aux["rgb"].detach(), gt_image),
                     "num_live": new_state.num_live(),
                 }
-                for k in ("loss_depth", "loss_opacity", "loss_density", "n_intersections",
-                          "n_dup_dropped", "n_tile_dropped"):
+                for k in ("loss_depth", "loss_opacity", "loss_density", "loss_mcmc_opacity",
+                          "loss_mcmc_scale", "n_intersections", "n_dup_dropped",
+                          "n_tile_dropped"):
                     if k in aux:
                         v = aux[k]
                         metrics[k] = v.detach() if torch.is_tensor(v) else v

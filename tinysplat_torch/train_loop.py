@@ -9,8 +9,9 @@ Torch port of ``tinysplat_tpu.train_loop``. What stays on the host:
 - the densify / prune cadence, with capacity growth when densification
   runs out of free slots (grow, then redo the pass), periodic compaction
   and the opacity reset; under ``densify_strategy="mcmc"`` the refine pass
-  is ``relocate_and_grow`` instead, and capacity never grows, compaction
-  and the opacity reset are skipped;
+  is ``relocate_and_grow`` instead, on every ``cfg.mcmc_refine_every``-th
+  step where that is set (else on the densify interval), and capacity
+  never grows, compaction and the opacity reset are skipped;
 - the density-probe refresh of ``regularize_density``: at the window start
   the splats below opacity 0.5 are pruned; the probe (sample points, their
   KNN) is rebuilt at the start, on every step with
@@ -341,7 +342,10 @@ class Trainer:
         cfg, step = self.cfg, self.step
         if step < cfg.warmup_densify or step > cfg.densify_end:
             return
-        if step % self.interval_densify != 0:
+        every = self.interval_densify
+        if cfg.densify_strategy == "mcmc" and cfg.mcmc_refine_every > 0:
+            every = cfg.mcmc_refine_every
+        if step % every != 0:
             return
         with self._whole_state():
             self._densify()
@@ -352,9 +356,11 @@ class Trainer:
         t0 = time.perf_counter()
         if cfg.densify_strategy == "mcmc":
             # Relocation instead of clone / split / prune: the capacity is
-            # the cap, so nothing overflows and nothing grows.
-            self.state, self.opt_state, stats = relocate_and_grow(
-                self.state, self.opt_state, cfg, generator=self.generator)
+            # the cap, so nothing overflows and nothing grows. The pass ends
+            # in a host read of its counts, so the span is its whole time.
+            with span("ts.trainer.mcmc_relocate"):
+                self.state, self.opt_state, stats = relocate_and_grow(
+                    self.state, self.opt_state, cfg, generator=self.generator)
             self.densify_history.append(dict(stats, step=step, overflow=0,
                                              capacity_before=cap_before,
                                              capacity_after=cap_before,
