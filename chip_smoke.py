@@ -264,15 +264,28 @@ exits non-zero):
    one L2 a training step and one more L1 an eval view
    (``check_launches``).
 
+20. The compositing backward's "scatter" reduction ``scatter_rows``
+   (``csrc/scatter_rows.cu``) at phase 6's step-0 rows and at the entries
+   of the benchmark's ``splats-262k`` and ``splats-1m`` configurations
+   (their seed-0 cloud at their first training view, their budgets' pad
+   slots kept, K2's rows): one launch a call, each splat's row within the
+   float32 rounding of its adds of a float64 ``index_add_``, the sentinel
+   row 0; its device time (the zeroed output and the kernel) beside its
+   byte bound, the plain version's (``scatter_rows_plain``) and one
+   ``index_add_``'s (the library yardstick the port used before). Its
+   launches in the main path are those of the counted windows
+   (``check_launches``: one a "scatter" backward, none under "mxu").
+
 Phase 9 ends with the ``evaluate`` CLI on its step-12 checkpoint (every
 second view), whose per-view PSNR must equal ``Trainer.evaluate``'s to
 1e-3 dB.
 
 The line before the last is the kernels' JSON record (K1-K3's, S1's,
-S2's, B1-B4's and L1's and L2's launches sum the counted windows of phases 6, 10, 11, 12, 13, 14, 15, 16, 17 and 18,
+S2's, B1-B4's, L1's, L2's and ``scatter_rows``' launches sum the counted
+windows of phases 6, 10, 11, 12, 13, 14, 15, 16, 17 and 18,
 ``launches_by_phase``; phase 11's sum the four ranks' training windows and
-phase 14's include scaling_bench's nine ranks); the last line is
-``{"ok": true, "device": {...}}``.
+phase 14's include scaling_bench's nine ranks; ``scatter_rows``' numbers
+are its 1M layout's); the last line is ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import json
@@ -435,6 +448,7 @@ SPLAT_COMBOS = [(deg, aa, mode) for deg in (0, 3) for aa in (False, True)
 SPLAT_FWD_FLOP, SPLAT_BWD_FLOP = 500, 1500
 SPLAT_REPS = 5  # layer calls, frames and steps a way in phase 17 (d)
 SSIM_REPS = 50  # timed launches of L1 and L2 in phase 19 (c)
+SCATTER_REPS = 50  # timed calls of scatter_rows at each layout of phase 20
 # Phase 19's bar on a rendered frame, where float32 itself is 2.9e-4 off
 # the exact map (ssim_cuda.TOL): L1's map and L1 -> L2's gradients no further
 # from the float64 plain version than this many times the float32 plain
@@ -545,8 +559,10 @@ def column_err(torch, got, ref):
 
 
 def plain_reduce(rc, rows, entry_rank, n, strategy):
-    """The per-splat rows of ``strategy`` with K3's plain version in place
-    of K3 (the other strategies are plain torch ops)."""
+    """The per-splat rows of ``strategy`` with the plain versions in place
+    of K3 and ``scatter_rows`` (the other strategies are plain torch ops)."""
+    if strategy == "scatter":
+        return rc.scatter_rows_plain(rows, entry_rank, n)[:n]
     if strategy != "mxu":
         return rc.reduce_entry_grads(rows, entry_rank, n, strategy)
     return rc.segsum_plain(rows, *rc.segsum_inputs(entry_rank, n))
@@ -819,7 +835,7 @@ def train_layers(torch, rc, tt, state, opt, cam, gt, cfg, step_ms):
 
 def reduction_layers(rc, rows, entry_rank, n):
     """The entry -> splat reduction layer at one step's rows, "mxu" (the
-    sort, the bounds and K3) and "scatter" (``index_add_``): device time
+    sort, the bounds and K3) and "scatter" (``scatter_rows``): device time
     (``device_only``) and host-paced time, median of 20 each, and the sort
     and bounds alone."""
     from tinysplat_torch.probes import timed_ms
@@ -1084,15 +1100,15 @@ def probes_phase(torch):
 
 def counted_kernels(rc):
     """The kernel wrappers whose launches the script counts: K1-K3, the
-    splat-input kernels S1 and S2, the binning kernels B1-B4 and SSIM's L1
-    and L2."""
+    splat-input kernels S1 and S2, the binning kernels B1-B4, SSIM's L1
+    and L2 and the "scatter" reduction ``scatter_rows``."""
     from tinysplat_torch.ops import binning_cuda as bc
     from tinysplat_torch.ops import splat_inputs_cuda as si
     from tinysplat_torch.ops import ssim_cuda as sc
 
     return (rc.composite_fwd, rc.composite_bwd, rc.segsum, si.splat_fwd, si.splat_bwd,
             bc.bin_count, bc.bin_emit, bc.radix_hist, bc.radix_scatter, sc.ssim_fwd,
-            sc.ssim_bwd)
+            sc.ssim_bwd, rc.scatter_rows)
 
 
 def check_launches(got, want, label):
@@ -1108,7 +1124,10 @@ def check_launches(got, want, label):
     SSIM loss and that loss's backward): once a K2 launch, or
     ``want["ssim"]`` times where a window's backwards are not all training
     steps; L1 runs once more for each of ``want["evals"]`` eval views (an
-    SSIM with no backward)."""
+    SSIM with no backward). ``scatter_rows`` runs once a backward that K3
+    does not reduce: a window's backwards go through "scatter" or "mxu"
+    (K3), so K2's launches less K3's, unless ``want`` names it (a window
+    that runs "sorted" or "segment" too)."""
     want = dict(want)
     bins = want.pop("bins", want["composite_fwd"])
     radix = want.pop("radix", RADIX_PASSES * bins)
@@ -1116,7 +1135,8 @@ def check_launches(got, want, label):
     evals = want.pop("evals", 0)
     want = {"splat_fwd": want["composite_fwd"], "splat_bwd": want["composite_bwd"],
             "bin_count": bins, "bin_emit": bins, "radix_hist": radix, "radix_scatter": radix,
-            "ssim_fwd": steps + evals, "ssim_bwd": steps, **want}
+            "ssim_fwd": steps + evals, "ssim_bwd": steps,
+            "scatter_rows": want["composite_bwd"] - want["segsum"], **want}
     if got != want:
         raise AssertionError(f"{label}: expected launches {want}, counted {got}")
 
@@ -2484,13 +2504,15 @@ def quality_phase(torch, rc):
 
 def sweep_launches(lines, label, grads, k3):
     """K1-K3 of a sweep of ``grads`` gradients a config, ``k3`` of them
-    through K3; raises first on a line with an error or one that claims
-    ``tpb`` was read."""
+    through K3 and ``grads`` through ``scatter_rows`` for each "scatter"
+    config; raises first on a line with an error or one that claims ``tpb``
+    was read."""
     for line in lines:
         if "error" in line or line.get("tiles_per_block_read") is not False:
             raise AssertionError(f"{label}: {line}")
+    scatter = sum(line["config"].split(":")[0] == "scatter" for line in lines)
     return {"composite_fwd": grads * len(lines), "composite_bwd": grads * len(lines),
-            "segsum": k3, "ssim": 0}
+            "segsum": k3, "ssim": 0, "scatter_rows": grads * scatter}
 
 
 def scaling_model_launches(o):
@@ -3253,6 +3275,106 @@ def ssim_phase(torch, img, gt):
     return rows
 
 
+def bench_layout(torch, rc, config):
+    """A benchmark configuration's entries (``splatbench/configs/<config>
+    .json``): its seed-0 cloud at its first training view through
+    ``tile_inputs`` with the configuration's tiles and budgets (every pad
+    slot of the budget kept), and K2's rows for a numpy-drawn cotangent.
+    Returns (rows, entry_rank, n)."""
+    from splatbench import inputs
+    from tinysplat_torch.cameras import Camera
+    from tinysplat_torch.models.gaussians import GaussianParams
+    from tinysplat_torch.render import splat_inputs
+
+    bench = os.path.join(HERE, "splatbench")
+    with open(os.path.join(bench, "configs", f"{config}.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(bench, "traffic", "train-late.json")) as f:
+        view = inputs.training_views(cfg, json.load(f))[0]
+    cam = Camera(position=view.position, f_x=view.fx, f_y=view.fy, fov_x=view.fov_x,
+                 fov_y=view.fov_y, view_matrix=view.view, width=view.width,
+                 height=view.height, name=view.name).params(device="cuda")
+    n, h, w, prog = cfg["n_splats"], cfg["height"], cfg["width"], cfg["program"]
+    with torch.no_grad():
+        s = splat_inputs(GaussianParams(**inputs.make_cloud(cfg, 0, "cuda")),
+                         torch.ones(n, dtype=torch.bool, device="cuda"), cam, h, w,
+                         torch.tensor(cfg["sh_degree"], dtype=torch.int32, device="cuda"),
+                         torch.zeros(3, device="cuda"))
+        ti = rc.tile_inputs(s.xys, s.proj.depths, s.proj.radii, s.proj.conics, s.colors4,
+                            s.opacities, s.valid, h, w, tile_x=prog["tile_x"],
+                            tile_h=prog["tile_size"], dup_capacity=prog["dup_capacity"],
+                            max_per_tile=prog["max_per_tile"],
+                            span_capacity=prog["span_capacity"])
+    if int(ti.bins.dup_overflow) or int(ti.bins.tile_overflow):
+        raise AssertionError(f"phase 20: the {config} layout dropped entries")
+    out = rc.composite_fwd(ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy,
+                           ti.tile_x, ti.tile_h)
+    rows = rc.composite_bwd(ti.table, ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy,
+                            out, random_cotangent(torch, out, 20), ti.tile_x, ti.tile_h)
+    return rows, ti.entry_rank, n
+
+
+def scatter_rows_holds(torch, rows, ids, n, got):
+    """(max |got - exact| over its allowance, splats, live slots) of
+    ``scatter_rows``' output against a float64 ``index_add_``: each splat's
+    row may miss the exact sum by the float32 rounding of its k adds in any
+    order, (k - 1) 2^-24 of the sum of the added |rows|, plus k smallest
+    normals (the atomics flush subnormals to 0; one for a splat with no
+    entry, whose row stays 0); the sentinel row must be 0."""
+    live = (ids >= 0) & (ids < n)
+    zero = torch.zeros((n + 1, rows.shape[1]), dtype=torch.float64, device=rows.device)
+    ref = zero.index_add(0, ids[live], rows[live].double())
+    mag = zero.index_add(0, ids[live], rows[live].double().abs())
+    k = torch.bincount(ids[live], minlength=n + 1).double()[:, None]
+    allowed = (k - 1).clamp(min=0) * 2.0**-24 * 1.001 * mag + k.clamp(min=1) * 2.0**-126
+    ratio = float(((got.double() - ref).abs() / allowed).max())
+    if bool((got[n] != 0).any()):
+        ratio = float("inf")
+    return ratio, int((k > 0).sum()), int(live.sum())
+
+
+def scatter_phase(torch, rc, step_rows, step_ranks, step_n):
+    """Phase 20: see the module docstring. ``step_rows`` etc.: phase 6's
+    step-0 rows, entry ranks and splat count. Returns scatter_rows' row of
+    the kernels' JSON line (the 1M layout's numbers)."""
+    from tinysplat_torch.probes import timed_ms
+
+    phase_t0 = time.perf_counter()
+    print(f"phase 20: the reduction kernel scatter_rows ({gpu_name_and_limit()})", flush=True)
+    layouts = {"bench step 0": (step_rows, step_ranks, step_n),
+               "splats-262k": bench_layout(torch, rc, "splats-262k"),
+               "splats-1m": bench_layout(torch, rc, "splats-1m")}
+    rows_out = {}
+    for label, (rows, ranks, n) in layouts.items():
+        ids = ranks.long()
+        sink = torch.where((ids < 0) | (ids >= n), n, ids)
+        before = rc.scatter_rows.launches
+        got = rc.scatter_rows(rows, ranks, n)
+        torch.cuda.synchronize()
+        ratio, splats, live = scatter_rows_holds(torch, rows, ids, n, got)
+        if rc.scatter_rows.launches != before + 1 or not ratio <= 1.0:
+            raise AssertionError(f"phase 20: scatter_rows at {label}: launches "
+                                 f"{rc.scatter_rows.launches - before}, error over its "
+                                 f"allowance {ratio}")
+        plain_err = float((rc.scatter_rows_plain(rows, ranks, n) - got).abs().max())
+        ms = timed_ms(lambda: rc.scatter_rows(rows, ranks, n), SCATTER_REPS, device_only=True)
+        plain_ms = timed_ms(lambda: rc.scatter_rows_plain(rows, ranks, n), 5, device_only=True)
+        zero = torch.zeros((n + 1, rc.TABLE_COLS), device="cuda")
+        lib_ms = timed_ms(lambda: zero.index_add(0, sink, rows), 5, device_only=True)
+        d = ranks.shape[0]
+        nbytes = 4 * d + 4 * rc.TABLE_COLS * (live + n + 1)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows_out[label] = {"max_abs_err": plain_err, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms}
+        print(f"  {label}: D {d} slots, E {live} live into {splats} of n {n} splats; "
+              f"error over its allowance {ratio:.3f}, max |kernel - plain| {plain_err:.3e}; "
+              f"scatter_rows {ms:.4f} ms (zeroed output and kernel, median of {SCATTER_REPS}), "
+              f"bound {bound:.4f} ms by bytes ({nbytes} B, {bound / ms:.1%}); plain version "
+              f"{plain_ms:.4f} ms; index_add_ {lib_ms:.4f} ms", flush=True)
+    print(f"  phase 20: {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return rows_out["splats-1m"]
+
+
 def plain_binning(xys, depths, radii, valid, tiles_x, tiles_y, tile_size=16, chunk=128,
                   dup_capacity=0, max_per_tile=0, span_capacity=0, conics=None,
                   opacities=None, row_stride=1, row_offset=0, tile_size_x=0):
@@ -3843,6 +3965,8 @@ def main() -> int:
         frame = render(train.params, train.alive, views[0], HEIGHT, WIDTH,
                        train.active_sh_degree, bg, **RENDER_KW)[0]
     ssim_rows = ssim_phase(torch, frame, gts[0])
+    # -- 20. the reduction kernel scatter_rows ------------------------------------------------
+    scatter_row = scatter_phase(torch, rc, rows0, ti0.entry_rank, n0)
     by_phase = {name: {"6": train_launches[name] if name != "segsum" else
                        mxu_launches["segsum"], "10": mesh_launches[name],
                        "11": shard_launches[name], "12": diffusion_launches[name],
@@ -3916,7 +4040,15 @@ def main() -> int:
         "launches": sum(by_phase[name].values()),
         "launches_by_phase": by_phase[name],
         **ssim_rows[name],
-    } for name in ("ssim_fwd", "ssim_bwd")]}
+    } for name in ("ssim_fwd", "ssim_bwd")] + [{
+        "name": "scatter_rows",
+        "route": "cuda",
+        "source": "tinysplat_torch/csrc/scatter_rows.cu",
+        "replaces": "tinysplat_tpu/ops/rasterize_pallas.py:125",
+        "launches": sum(by_phase["scatter_rows"].values()),
+        "launches_by_phase": by_phase["scatter_rows"],
+        **scatter_row,
+    }]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

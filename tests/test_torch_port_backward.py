@@ -252,6 +252,101 @@ def test_reduce_entry_grads_sums_each_splat(grad_reduce):
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("grad_reduce", rc.GRAD_REDUCE)
+def test_table_grad_is_the_per_splat_rows_and_a_zero_row(grad_reduce):
+    """The one choice of strategy: the backward's table gradient is
+    ``reduce_entry_grads``' rows with the sentinel row, exactly 0, below."""
+    rows, ranks, ref = _random_rows(seed=7)
+    n = ref.shape[0]
+    got = rc.table_grad(rows, ranks, n, grad_reduce)
+    assert got.shape == (n + 1, rc.TABLE_COLS) and got.dtype == torch.float32
+    assert torch.equal(got[:n], rc.reduce_entry_grads(rows, ranks, n, grad_reduce))
+    assert (got[n].view(torch.int32) == 0).all()
+    np.testing.assert_allclose(got[:n].numpy(), ref, atol=1e-5, rtol=0)
+
+
+def _todays_scatter(rows, ranks, n):
+    """The "scatter" table gradient as the backward made it before
+    ``scatter_rows``: ``index_add_`` into n + 1 rows, the pads' sink row n
+    dropped, a zero sentinel row appended."""
+    ids = rc._splat_ids(ranks, n)
+    return torch.cat([rows.new_zeros((n + 1, rc.TABLE_COLS)).index_add_(0, ids, rows)[:n],
+                      rows.new_zeros((1, rc.TABLE_COLS))])
+
+
+def _only_pads(d=300, n=40):
+    ranks = np.where(np.arange(d) % 3 == 0, -1, n + np.arange(d) % 5).astype(np.int32)
+    return _spread_rows(d, 11), torch.from_numpy(ranks), n
+
+
+# name -> (rows, entry_rank, n) for scatter_rows.
+SCATTER_CASES = {
+    "pads and out-of-range ranks": lambda: _random_rows()[:2] + (60,),
+    "rows of 1e-3..1e3": lambda: (_spread_rows(1000, 12), _random_rows(d=1000, seed=3)[1],
+                                  60),
+    "E = 0": _only_pads,
+    "n = 0": lambda: _random_rows(d=50, n=7)[:2] + (0,),
+    "D = 0": lambda: (torch.zeros((0, rc.TABLE_COLS)), torch.zeros(0, dtype=torch.int32), 9),
+}
+
+
+@pytest.mark.parametrize("name", list(SCATTER_CASES))
+def test_scatter_rows_plain_is_todays_index_add(name):
+    """On CPU tensors ``scatter_rows`` launches nothing and gives the bytes of
+    the ``index_add_`` expression it replaced, the sentinel row exactly 0."""
+    rows, ranks, n = SCATTER_CASES[name]()
+    before = rc.scatter_rows.launches
+    got = rc.scatter_rows(rows, ranks, n)
+    assert rc.scatter_rows.launches == before
+    ref = _todays_scatter(rows, ranks, n)
+    assert got.shape == (n + 1, rc.TABLE_COLS) and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert (got[n].view(torch.int32) == 0).all()
+    assert torch.equal(rc.reduce_entry_grads(rows, ranks, n, "scatter"), got[:n])
+
+
+def test_scatter_backward_gives_todays_table_gradient():
+    """The compositing backward under "scatter" hands autograd
+    ``scatter_rows``' rows whole: the bytes of K2's rows reduced and
+    concatenated with a zero row as before."""
+    case = random_case(n=60, H=32, W=48, seed=4)
+    ti = rc.tile_inputs(*_torch_args(case)[:9], tile_x=16)
+    table = ti.table.clone().requires_grad_()
+    args = (ti.entry_rank, ti.tile_starts, ti.counts, ti.sx, ti.sy)
+    out = rc.composite_tiles(table, *args, 16, "scatter")
+    gout = torch.from_numpy(np.random.default_rng(5).normal(size=tuple(out.shape))
+                            .astype(np.float32))
+    out.backward(gout)
+    rows = rc.composite_bwd(ti.table, *args, out.detach(), gout, 16)
+    ref = _todays_scatter(rows, ti.entry_rank, ti.table.shape[0] - 1)
+    assert torch.equal(table.grad.view(torch.int32), ref.view(torch.int32))
+    assert bool((ref[:-1] != 0).any())
+
+
+# name -> (arguments from good (8, 10) rows and 8 ranks, error, message).
+SCATTER_REJECTS = {
+    "float64 rows": (lambda r, k: (r.double(), k, 4), TypeError, "rows must be float32"),
+    "9 columns": (lambda r, k: (r[:, :9], k, 4), TypeError, "rows must be float32"),
+    "1-D rows": (lambda r, k: (r.reshape(-1), k, 4), TypeError, "rows must be float32"),
+    "int64 ranks": (lambda r, k: (r, k.long(), 4), TypeError, "entry_rank must be"),
+    "2-D ranks": (lambda r, k: (r, k[:, None], 4), TypeError, "entry_rank must be"),
+    "7 ranks for 8 rows": (lambda r, k: (r, k[:7], 4), ValueError, "entry_rank has 7"),
+    "negative n": (lambda r, k: (r, k, -1), ValueError, "n must lie"),
+    "ranks on another device": (lambda r, k: (r, k.to("meta"), 4), ValueError,
+                                "entry_rank is on meta"),
+    "meta tensors": (lambda r, k: (r.to("meta"), k.to("meta"), 4), ValueError,
+                     "CUDA or CPU tensors, not meta"),
+}
+
+
+@pytest.mark.parametrize("name", list(SCATTER_REJECTS))
+def test_scatter_rows_rejects(name):
+    make, error, message = SCATTER_REJECTS[name]
+    rows, ranks = torch.zeros((8, rc.TABLE_COLS)), torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(error, match=message):
+        rc.scatter_rows(*make(rows, ranks))
+
+
 def test_segsum_plain_sums_runs_in_order():
     rows, _, _ = _random_rows(d=50)
     perm = torch.from_numpy(np.random.default_rng(4).permutation(50).astype(np.int32))

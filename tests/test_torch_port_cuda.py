@@ -9,7 +9,10 @@ per-entry rows to 1e-5 x the column's max |plain| (the masks are K1's bit
 for bit; only the order of the pixel sums and K2's fused multiply-adds in
 the gradient terms differ), and two K2 launches byte for byte; K3 bit for
 bit, and two launches byte for byte (it adds each run in the plain
-version's order, with no atomics). The probes: P1 bit for
+version's order, with no atomics); ``scatter_rows`` against a float64
+``index_add_`` of the same rows, each splat's row within the float32
+rounding of its adds in any order (its atomics change order from launch to
+launch), the sentinel row exactly 0. The probes: P1 bit for
 bit (it moves bits as integers); P2 per row, as ``op_costs.TOLERANCE``
 states with its reasons. SSIM's L1 and L2 as ``ssim_cuda.TOL`` states,
 and two launches byte for byte.
@@ -327,6 +330,87 @@ def test_k3_rejects_unaligned_rows():
     perm = torch.arange(8, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="8-byte boundary"):
         rc.segsum(rows, perm, torch.tensor([0, 8], dtype=torch.int32, device="cuda"))
+
+
+def _smoke():
+    """``chip_smoke`` (JAX-free, at the repository root), whose phase 20
+    builds the bench layouts and holds ``scatter_rows`` to its bound."""
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _bench_layout(config):
+    """(rows, ranks, n): K2's rows over a benchmark configuration's entries,
+    every pad slot of its budget kept (``chip_smoke.bench_layout``). The
+    scene comes from the benchmark's own generator (``splatbench/inputs.py``
+    and the configuration's JSON), so a change there changes the layout
+    this test holds the kernel to."""
+    _need_card()
+    return _smoke().bench_layout(torch, rc, config)
+
+
+def _scatter_case(d, n, seed, live=0.3, hot=0):
+    """d slots: a ``live`` share ranked in [0, n), the rest -1 or n..n + 2,
+    and ``hot`` more slots all ranked 3; rows of magnitudes 1e-3..1e3, so
+    the order of the adds shows in the low bits."""
+    _need_card()
+    rng = np.random.default_rng(seed)
+    kind = rng.uniform(size=d)
+    ranks = np.where(kind < live, rng.integers(0, max(n, 1), size=d), -1)
+    ranks = np.where(kind > 1 - (1 - live) / 3, n + rng.integers(0, 3, size=d), ranks)
+    ranks = rng.permutation(np.concatenate([ranks, np.full(hot, 3)])).astype(np.int32)
+    rows = rng.normal(size=(len(ranks), 10)) * 10.0 ** rng.uniform(-3, 3, (len(ranks), 1))
+    return (torch.as_tensor(rows, dtype=torch.float32, device="cuda"),
+            torch.as_tensor(ranks, device="cuda"), n)
+
+
+# name -> (rows, ranks, n) for scatter_rows. The kernel takes 32 slots a warp
+# and 256 a block (csrc/scatter_rows.cu).
+SCATTER_CASES = {
+    "262k bench scene": lambda: _bench_layout("splats-262k"),
+    "1M bench scene": lambda: _bench_layout("splats-1m"),
+    "ranks -1, n and above": lambda: _scatter_case(10_000, 500, 1),
+    "E = 0": lambda: _scatter_case(4096, 100, 2, live=0.0),
+    "n = 0": lambda: _scatter_case(3000, 0, 3),
+    "D not a multiple of the block": lambda: _scatter_case(256 * 37 + 77, 900, 4),
+    "one splat in 5,000 slots": lambda: _scatter_case(2000, 50, 5, hot=5000),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SCATTER_CASES))
+def test_scatter_rows_matches_a_float64_index_add(name):
+    """One launch; the sentinel row exactly 0; each splat's row within the
+    float32 rounding of its k adds in any order, as the atomics' order
+    changes from launch to launch (``chip_smoke.scatter_rows_holds``)."""
+    rows, ranks, n = SCATTER_CASES[name]()
+    before = rc.scatter_rows.launches
+    got = rc.scatter_rows(rows, ranks, n)
+    assert rc.scatter_rows.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (n + 1, 10) and got.dtype == torch.float32
+    assert (got[n].view(torch.int32) == 0).all()
+    ratio, _, live = _smoke().scatter_rows_holds(torch, rows, ranks.long(), n, got)
+    assert ratio <= 1.0
+    if name.endswith("bench scene"):
+        assert live < ranks.shape[0] // 2  # most of the budget is pads
+    if name in ("E = 0", "n = 0"):
+        assert (got.view(torch.int32) == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["4 bytes past an 8-byte boundary", "not contiguous"])
+def test_scatter_rows_rejects_what_the_kernel_does_not_take(layout):
+    _need_card()
+    if layout == "not contiguous":
+        rows = torch.zeros((8, 20), device="cuda")[:, ::2]
+        match = "contiguous"
+    else:
+        rows = torch.zeros(1 + 8 * 10, device="cuda")[1:].view(8, 10)
+        match = "8-byte boundary"
+    with pytest.raises(ValueError, match=match):
+        rc.scatter_rows(rows, torch.zeros(8, dtype=torch.int32, device="cuda"), 4)
 
 
 @pytest.mark.cuda
@@ -900,3 +984,45 @@ def test_a_trainer_step_runs_ssim_through_l1_and_l2():
     tr.train_step()
     torch.cuda.synchronize()
     assert (sc.ssim_fwd.launches - fwd, sc.ssim_bwd.launches - bwd) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_a_trainer_step_reduces_through_scatter_rows():
+    """One Trainer step under "scatter" launches ``scatter_rows`` once, inside
+    ``ts.composite.reduce``, and no ``index_add_`` there."""
+    _need_card()
+    from tinysplat_torch.config import Config
+    from tinysplat_torch.data.synthetic import synthetic_pcd
+    from tinysplat_torch.models.gaussians import init_from_pcd
+    from tinysplat_torch.scene import Scene
+    from tinysplat_torch.train_loop import Trainer
+
+    cams = orbit_cameras(2, width=128, height=96)
+    rng = np.random.default_rng(6)
+    for cam in cams:
+        cam._image = rng.uniform(0, 1, (96, 128, 3)).astype(np.float32)
+    pcd = synthetic_pcd(2000, seed=3)
+    state = init_from_pcd(pcd.xyz, pcd.colors, sh_degree=1, device="cuda")
+    tr = Trainer(Config(rasterizer="auto", grad_reduce="scatter", sh_degree=1,
+                        warmup_densify=10**9, interval_opacity_reset=0,
+                        prefetch_images=False, seed=5), Scene(cams, seed=1), state)
+    tr.train_step()
+    torch.cuda.synchronize()
+    before = rc.scatter_rows.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        tr.train_step()
+        torch.cuda.synchronize()
+    assert rc.scatter_rows.launches == before + 1
+
+    def under_reduce(e):
+        while e is not None:
+            if e.name == "ts.composite.reduce":
+                return True
+            e = e.cpu_parent
+        return False
+
+    events = prof.events()
+    assert any(e.name == "ts.composite.reduce" for e in events)
+    inside = [e.name for e in events if under_reduce(e.cpu_parent)]
+    assert inside.count("scatter_rows") == 1, inside
+    assert not [name for name in inside if "index_add" in name], inside

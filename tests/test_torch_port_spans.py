@@ -13,8 +13,8 @@ installed: ``python -m pytest --noconftest tests/test_torch_port_spans.py``.
   records none of the three.
 - A step's loss and parameters are bit-equal with the profiler on and off.
 - On the card (skipped elsewhere): the spans and the device's kernels share
-  one clock. Each launch of K1, K2, S1 and S2 lies inside the span named for
-  its layer, and its kernel starts on the device after that span opened
+  one clock. Each launch of K1, K2, S1, S2, L1, L2 and ``scatter_rows`` lies
+  inside the span named for its layer, and its kernel starts on the device after that span opened
   (launch and kernel matched by correlation id); the compositing backward's
   and SSIM's backward spans are recorded from autograd's device thread.
 """
@@ -212,13 +212,15 @@ def test_step_bit_equal_with_the_profiler_on_and_off():
         assert torch.equal(p0[k], p1[k]), k
 
 
-# The span each kernel's launch must lie in: K1, K2, S1, S2, L1, L2.
+# The span each kernel's launch must lie in: K1, K2, S1, S2, L1, L2 and the
+# compositing backward's reduction.
 KERNEL_SPAN = {"composite_fwd_kernel": "ts.render.composite",
                "composite_bwd_kernel": "ts.composite.backward",
                "splat_fwd_kernel": "ts.render.splat_inputs",
                "splat_bwd_kernel": "ts.splat_inputs.backward",
                "ssim_fwd_kernel": "ts.ssim",
-               "ssim_bwd_kernel": "ts.ssim.backward"}
+               "ssim_bwd_kernel": "ts.ssim.backward",
+               "scatter_rows_kernel": "ts.composite.reduce"}
 
 
 @pytest.mark.cuda
@@ -256,15 +258,18 @@ def test_spans_share_the_device_clock_on_the_card():
     bwd_thread = {t for n, _, _, t in spans if n == "ts.composite.backward"}
     assert len(step_thread) == 1 and len(bwd_thread) == 1 and bwd_thread != step_thread
     assert {t for n, _, _, t in spans if n == "ts.ssim.backward"} == bwd_thread
-    # The profiler's own op tree puts each SSIM kernel under its span too
-    # (what the benchmark's ssim_kernel_ms.train sums): L2 through its
-    # operator range, inside the span inside autograd's node.
+    assert {t for n, _, _, t in spans if n == "ts.composite.reduce"} == bwd_thread
+    # The profiler's own op tree puts each SSIM kernel and the reduction's
+    # kernel under its span too (what the benchmark's ssim_kernel_ms.train and
+    # grad_reduce_device_ms.train sum): L2 and the reduction through their
+    # operator ranges, inside the span inside autograd's node.
 
     def subtree(e):
         return [k.name for k in e.kernels] + [n for c in e.cpu_children for n in subtree(c)]
 
     for span_name, kernel in (("ts.ssim", "ssim_fwd_kernel"),
-                              ("ts.ssim.backward", "ssim_bwd_kernel")):
+                              ("ts.ssim.backward", "ssim_bwd_kernel"),
+                              ("ts.composite.reduce", "scatter_rows_kernel")):
         names = [n for e in prof.events() if e.name == span_name
                  and e.device_type == torch.autograd.DeviceType.CPU for n in subtree(e)]
         assert sum(kernel in n for n in names) == 1, (span_name, names)

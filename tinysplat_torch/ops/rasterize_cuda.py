@@ -26,10 +26,12 @@ The backward (``loss.backward()`` reaches it through ``composite_tiles``, a
    ``composite_bwd_plain`` on CPU tensors. Per-entry gradient rows
    (len(entry_rank), 10) of the table columns, zero past each tile's live
    prefix.
-5. ``reduce_entry_grads``: per-entry rows -> per-splat rows, by one of the
-   JAX package's four ``grad_reduce`` strategies; ``"mxu"`` sorts by id and
-   sums each splat's run with K3 (``csrc/segsum.cu``, ``segsum``), which
-   reads the rows through the sort's permutation.
+5. ``table_grad``: per-entry rows -> per-splat rows of the table and its
+   zero sentinel row, by one of the JAX package's four ``grad_reduce``
+   strategies; ``"scatter"`` adds each live slot's row into its splat's
+   with ``scatter_rows`` (``csrc/scatter_rows.cu``), and ``"mxu"`` sorts by
+   id and sums each splat's run with K3 (``csrc/segsum.cu``, ``segsum``),
+   which reads the rows through the sort's permutation.
 6. Autograd carries the table gradient back through the depth-order
    permutation, projection, SH and the opacity sigmoid.
 
@@ -44,7 +46,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils.profiling import span
+from ..utils.profiling import op_range, span
 from . import _build
 from .binning import DenseBins, bin_splats_dense
 from .rasterize_dense import ALPHA_EPS, ALPHA_MAX, T_EPS
@@ -220,6 +222,7 @@ _SIGNATURES = {
     "composite_bwd": (_P, _I, _P, _LL, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P,
                       _P, _P),
     "segsum": (_P, _I, _P, _P, _I, _P, _P),
+    "scatter_rows": (_P, _P, _LL, _I, _P, _P),
 }
 
 
@@ -604,14 +607,16 @@ def segsum_plain(rows: torch.Tensor, perm: torch.Tensor, bounds: torch.Tensor) -
     return acc
 
 
-def reduce_entry_grads(rows: torch.Tensor, entry_rank: torch.Tensor, n: int,
-                       grad_reduce: str = "scatter") -> torch.Tensor:
-    """Per-entry gradient rows (D, 10) -> per-splat rows (n, 10): the sum of
-    the rows of every slot whose ``entry_rank`` is that splat's depth rank
-    (pad slots, rank -1, go nowhere).
+def table_grad(rows: torch.Tensor, entry_rank: torch.Tensor, n: int,
+               grad_reduce: str = "scatter") -> torch.Tensor:
+    """Per-entry gradient rows (D, 10) -> the table's gradient (n + 1, 10):
+    row r < n the sum of the rows of every slot whose ``entry_rank`` is r
+    (pad slots, rank -1, go nowhere), row n zero (the table's sentinel).
 
     ``grad_reduce`` keeps the JAX package's four names:
-      'scatter' — ``index_add_`` in slot order;
+      'scatter' — ``scatter_rows``: atomic adds in no fixed order on the
+                  card, ``index_add_`` in slot order on the CPU; it writes
+                  the zero row itself;
       'sorted'  — a stable sort by rank, then ``index_add_`` in sorted order;
       'segment' — the sort, a gather, a cumulative sum and boundary
                   differences (the cumulative sum runs in float64: in float32
@@ -621,22 +626,85 @@ def reduce_entry_grads(rows: torch.Tensor, entry_rank: torch.Tensor, n: int,
                   gathers the rows through the sort's permutation itself; the
                   name is the JAX package's, whose kernel put the sums on the
                   TPU's matrix unit.
+    The last three append the zero row to their (n, 10) sums.
     """
     if grad_reduce not in GRAD_REDUCE:
         raise ValueError(f"grad_reduce must be one of {GRAD_REDUCE}, got {grad_reduce!r}")
     if grad_reduce == "scatter":
-        return rows.new_zeros((n + 1, TABLE_COLS)).index_add_(0, _splat_ids(entry_rank, n),
-                                                              rows)[:n]
+        return scatter_rows(rows, entry_rank, n)
     if grad_reduce == "sorted":
         sorted_ids, perm = torch.sort(_splat_ids(entry_rank, n), stable=True)
-        return rows.new_zeros((n + 1, TABLE_COLS)).index_add_(0, sorted_ids, rows[perm])[:n]
-    perm, bounds = segsum_inputs(entry_rank, n)
-    if grad_reduce == "segment":
-        csum = torch.cat([rows.new_zeros((1, TABLE_COLS), dtype=torch.float64),
-                          torch.cumsum(rows[perm].double(), dim=0)])
-        b = bounds.long()
-        return (csum[b[1:]] - csum[b[:-1]]).float()
-    return segsum(rows, perm, bounds)
+        per_splat = rows.new_zeros((n + 1, TABLE_COLS)).index_add_(0, sorted_ids,
+                                                                   rows[perm])[:n]
+    else:
+        perm, bounds = segsum_inputs(entry_rank, n)
+        if grad_reduce == "segment":
+            csum = torch.cat([rows.new_zeros((1, TABLE_COLS), dtype=torch.float64),
+                              torch.cumsum(rows[perm].double(), dim=0)])
+            b = bounds.long()
+            per_splat = (csum[b[1:]] - csum[b[:-1]]).float()
+        else:
+            per_splat = segsum(rows, perm, bounds)
+    return torch.cat([per_splat, rows.new_zeros((1, TABLE_COLS))])
+
+
+def reduce_entry_grads(rows: torch.Tensor, entry_rank: torch.Tensor, n: int,
+                       grad_reduce: str = "scatter") -> torch.Tensor:
+    """Per-entry gradient rows (D, 10) -> per-splat rows (n, 10):
+    ``table_grad`` without its zero sentinel row."""
+    return table_grad(rows, entry_rank, n, grad_reduce)[:n]
+
+
+def scatter_rows(rows: torch.Tensor, entry_rank: torch.Tensor, n: int) -> torch.Tensor:
+    """(n + 1, 10): row r < n the sum of the (D, 10) float32 ``rows`` of the
+    slots whose (D,) int32 ``entry_rank`` is r, row n zero (the table's
+    sentinel); slots ranked below 0 or at n or above add nothing.
+
+    Launches ``csrc/scatter_rows.cu`` on CUDA tensors
+    (``scatter_rows.launches`` counts the launches), whose atomic adds come
+    in another order each launch, and runs ``scatter_rows_plain`` on CPU
+    tensors. Raises on any other device, dtype, shape or layout.
+    """
+    if rows.dim() != 2 or rows.shape[1] != TABLE_COLS or rows.dtype != torch.float32:
+        raise TypeError(f"rows must be float32 (D, {TABLE_COLS}), got {rows.dtype} "
+                        f"{tuple(rows.shape)}")
+    if entry_rank.dtype != torch.int32 or entry_rank.dim() != 1:
+        raise TypeError(f"entry_rank must be a 1-D int32 tensor, got {entry_rank.dtype} "
+                        f"{tuple(entry_rank.shape)}")
+    if entry_rank.shape[0] != rows.shape[0]:
+        raise ValueError(f"entry_rank has {entry_rank.shape[0]} slots, rows {rows.shape[0]}")
+    if not 0 <= n < 2**31 - 1:
+        raise ValueError(f"n must lie in [0, 2**31 - 1), got {n}")
+    if entry_rank.device != rows.device:
+        raise ValueError(f"entry_rank is on {entry_rank.device}, rows on {rows.device}")
+    if rows.device.type == "cpu":
+        return scatter_rows_plain(rows, entry_rank, n)
+    if rows.device.type != "cuda":
+        raise ValueError(f"scatter_rows runs on CUDA or CPU tensors, not {rows.device}")
+    if not (rows.is_contiguous() and entry_rank.is_contiguous()):
+        raise ValueError("scatter_rows takes contiguous rows and entry_rank")
+    if rows.data_ptr() % 8:
+        raise ValueError("rows must start on an 8-byte boundary (the kernel reads 8-byte "
+                         "pieces)")
+    out = torch.zeros((n + 1, TABLE_COLS), dtype=torch.float32, device=rows.device)
+    # An operator range of its own, so a trace counts the kernel inside the
+    # caller's span (``ts.composite.reduce``, in autograd's backward).
+    with op_range("scatter_rows"):
+        _launch("scatter_rows", rows.device, rows.data_ptr(), entry_rank.data_ptr(),
+                rows.shape[0], n, out.data_ptr())
+    scatter_rows.launches += 1
+    return out
+
+
+scatter_rows.launches = 0
+
+
+def scatter_rows_plain(rows: torch.Tensor, entry_rank: torch.Tensor, n: int) -> torch.Tensor:
+    """``scatter_rows`` in plain PyTorch: ``index_add_`` in slot order, the
+    pads into row n, which is then zeroed."""
+    out = rows.new_zeros((n + 1, TABLE_COLS)).index_add_(0, _splat_ids(entry_rank, n), rows)
+    out[n] = 0.0
+    return out
 
 
 def _splat_ids(entry_rank: torch.Tensor, n: int) -> torch.Tensor:
@@ -657,8 +725,8 @@ def segsum_inputs(entry_rank: torch.Tensor, n: int):
 
 
 class _CompositeTiles(torch.autograd.Function):
-    """K1 forward; backward = K2, then the ``grad_reduce`` reduction to
-    per-splat rows of the table."""
+    """K1 forward; backward = K2, then ``table_grad``'s ``grad_reduce``
+    reduction to the table's rows."""
 
     @staticmethod
     def forward(ctx, table, entry_rank, tile_starts, counts, sx, sy, tile_x, grad_reduce,
@@ -675,9 +743,7 @@ class _CompositeTiles(torch.autograd.Function):
             rows = composite_bwd(table, entry_rank, tile_starts, counts, sx, sy, out,
                                  gout.contiguous(), ctx.tile_x, ctx.tile_h)
         with span("ts.composite.reduce"):
-            n = table.shape[0] - 1
-            dtable = torch.cat([reduce_entry_grads(rows, entry_rank, n, ctx.grad_reduce),
-                                table.new_zeros((1, TABLE_COLS))])
+            dtable = table_grad(rows, entry_rank, table.shape[0] - 1, ctx.grad_reduce)
         return (dtable,) + (None,) * 8
 
 
@@ -735,7 +801,7 @@ def rasterize_cuda(
     multiple of 16.
     ``chunk`` rounds the binning capacities and sizes the trailing pad, as
     in the JAX layout. ``grad_reduce`` selects the per-entry -> per-splat
-    gradient reduction of the backward (``reduce_entry_grads``).
+    gradient reduction of the backward (``table_grad``).
     ``tiles_per_block`` is a TPU grid-step setting that this path does not
     read. ``row_stride`` / ``row_offset``: render only the global tile rows
     {o, o + S, ...} (``xys`` in global pixels) into an (img_height, W) band.

@@ -124,7 +124,7 @@ def sharded_step_ms(mesh_shape, batch: int, height: int, width: int, means, colo
     generator = torch.Generator(device=dev)
     kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum, si.splat_fwd, si.splat_bwd,
                bc.bin_count, bc.bin_emit, bc.radix_hist, bc.radix_scatter, sc.ssim_fwd,
-               sc.ssim_bwd)
+               sc.ssim_bwd, rc.scatter_rows)
 
     def step(s):
         generator.manual_seed(0)
