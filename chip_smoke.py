@@ -298,6 +298,7 @@ import time
 
 import numpy as np
 
+from tinysplat_torch.ops import _build
 from tinysplat_torch.utils.device import gpu_name_and_limit
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -926,9 +927,9 @@ def trainer_phase(torch, rc, tt, Config, views, gts, serve_state, deg, bg):
               f"mxu; tau_means {tau:.4e} (60% of the live splats pass it at the start)",
               flush=True)
         tr = Trainer(cfg, scene, start)
-        kernels = counted_kernels(rc)
+        kernels = counted_kernels()
         for k in kernels:
-            k.launches = 0
+            _build.launches[k] = 0
         step_s, losses, drops = [], [], []
         for s in range(1, TRAINER_STEPS + 1):
             t0 = time.perf_counter()
@@ -940,7 +941,7 @@ def trainer_phase(torch, rc, tt, Config, views, gts, serve_state, deg, bg):
             m = tr.last_metrics
             losses.append(float(m["loss"]))
             drops.append((int(m["n_dup_dropped"]), int(m["n_tile_dropped"])))
-        launches = {k.__name__: k.launches for k in kernels}
+        launches = {k: _build.launches[k] for k in kernels}
         print(f"  launches in the {TRAINER_STEPS} steps: {launches}; losses "
               f"{[round(x, 5) for x in losses]}; entries dropped by binning (total, tile) "
               f"{drops}; host s per step {[round(x, 3) for x in step_s]}", flush=True)
@@ -1068,12 +1069,12 @@ def probes_phase(torch):
     from tinysplat_torch.probes import bitcast, op_costs
 
     print("phase 8: probes P1 (bitcast) and P2 (op_costs)", flush=True)
-    bitcast.probe_bitcast.launches = 0
+    _build.launches["probe_bitcast"] = 0
     r1 = bitcast.run("cuda")
-    l1 = bitcast.probe_bitcast.launches
-    op_costs.probe_op_costs.launches = 0
+    l1 = _build.launches["probe_bitcast"]
+    _build.launches["probe_op_costs"] = 0
     r2 = op_costs.run("cuda")
-    l2 = op_costs.probe_op_costs.launches
+    l2 = _build.launches["probe_op_costs"]
     print(f"  launches: P1 {l1}, P2 {l2}", flush=True)
     if set(r1) != set(bitcast.VARIANTS) or set(r2) != set(op_costs.OPS):
         raise AssertionError("a probe variant or row gave no result")
@@ -1098,17 +1099,13 @@ def probes_phase(torch):
              "bound_by": "operations", "library_ms": None})
 
 
-def counted_kernels(rc):
-    """The kernel wrappers whose launches the script counts: K1-K3, the
-    splat-input kernels S1 and S2, the binning kernels B1-B4, SSIM's L1
-    and L2 and the "scatter" reduction ``scatter_rows``."""
-    from tinysplat_torch.ops import binning_cuda as bc
-    from tinysplat_torch.ops import splat_inputs_cuda as si
-    from tinysplat_torch.ops import ssim_cuda as sc
-
-    return (rc.composite_fwd, rc.composite_bwd, rc.segsum, si.splat_fwd, si.splat_bwd,
-            bc.bin_count, bc.bin_emit, bc.radix_hist, bc.radix_scatter, sc.ssim_fwd,
-            sc.ssim_bwd, rc.scatter_rows)
+def counted_kernels():
+    """The entry points whose launches the script zeroes and compares, by
+    their keys in ``_build.launches``: K1-K3, the splat-input kernels S1 and
+    S2, the binning kernels B1-B4, SSIM's L1 and L2 and the "scatter"
+    reduction ``scatter_rows``."""
+    return ("composite_fwd", "composite_bwd", "segsum", "splat_fwd", "splat_bwd", "bin_count",
+            "bin_emit", "radix_hist", "radix_scatter", "ssim_fwd", "ssim_bwd", "scatter_rows")
 
 
 def check_launches(got, want, label):
@@ -1347,11 +1344,11 @@ def dataset_phase(torch, rc, tt, Config, state, deg, bg, device="cuda", height=H
             viewer._queue_task.cancel()
             return port
 
-        kernels = counted_kernels(rc)
+        kernels = counted_kernels()
         for k in kernels:
-            k.launches = 0
+            _build.launches[k] = 0
         port = asyncio.run(serve_and_train())
-        launches = {k.__name__: k.launches for k in kernels}
+        launches = {k: _build.launches[k] for k in kernels}
         check_launches(launches, {"composite_fwd": steps + len(frames), "composite_bwd": steps,
                                   "segsum": steps}, "phase 9 (steps and frames)")
         psnr_after = trainer.evaluate(cams)["eval_psnr"]
@@ -1586,9 +1583,9 @@ def mesh_phase(torch, rc, tt, Config, gts, device="cuda", height=HEIGHT, width=W
         tr = Trainer(cfg, scene, start)
         objective = {"start": mesh_objective(torch, tt, tr.state, cfg, cams, device)}
         ref_path = os.path.join(tmp, "before_refine.npz")
-        kernels = counted_kernels(rc)
+        kernels = counted_kernels()
         for k in kernels:
-            k.launches = 0
+            _build.launches[k] = 0
         step_s, loss_density = [], []
         for s in range(1, MESH_STEPS + 1):
             if s == cfg.warmup_densify:
@@ -1602,7 +1599,7 @@ def mesh_phase(torch, rc, tt, Config, gts, device="cuda", height=HEIGHT, width=W
             sync(torch, device)
             step_s.append(time.perf_counter() - t0)
             loss_density.append(float(tr.last_metrics.get("loss_density", float("nan"))))
-        launches = {k.__name__: k.launches for k in kernels}
+        launches = {k: _build.launches[k] for k in kernels}
         if cuda:
             check_launches(launches, {"composite_fwd": MESH_STEPS, "composite_bwd": MESH_STEPS,
                                       "segsum": MESH_STEPS}, f"phase 10 ({MESH_STEPS} steps)")
@@ -1695,7 +1692,7 @@ def mesh_phase(torch, rc, tt, Config, gts, device="cuda", height=HEIGHT, width=W
             runs.append(("marching_cubes", []))
         for alg, flags in runs:
             out_path = os.path.join(tmp, f"{alg}.obj")
-            rc.composite_fwd.launches = 0
+            _build.launches["composite_fwd"] = 0
             t0 = time.perf_counter()
             summary = export_cli.main(["--filetype", "OBJ", "--device", device,
                                        "--mesh-extraction-algorithm", alg, *flags, ck12,
@@ -1716,7 +1713,7 @@ def mesh_phase(torch, rc, tt, Config, gts, device="cuda", height=HEIGHT, width=W
                   f"stages (s) { {k: round(v, 4) for k, v in summary['seconds'].items()} }; "
                   f"{len(verts)} vertices, {len(faces)} faces ({unused} vertices in no face, {flat} "
                   f"whose faces have no area); "
-                  f"K1 launches {rc.composite_fwd.launches}{extra}", flush=True)
+                  f"K1 launches {_build.launches['composite_fwd']}{extra}", flush=True)
     print(f"  phase 10: {time.perf_counter() - phase_t0:.1f} s", flush=True)
     return launches
 
@@ -1763,7 +1760,7 @@ def shard_rank(mesh_shape, batch, ckpt_dir, scene, frame_cams):
 
     dev = rank_device()
     mesh = make_mesh(*mesh_shape)
-    kernels = counted_kernels(rc)
+    kernels = counted_kernels()
     out = {"rank": mesh.rank}
     height = SHARD_HEIGHT
     if frame_cams:
@@ -1774,7 +1771,7 @@ def shard_rank(mesh_shape, batch, ckpt_dir, scene, frame_cams):
         fn = make_sharded_render(Config(**TRAINER_KW), height, WIDTH, mesh)
         bg = torch.zeros(3, device=dev)
         for k in kernels:
-            k.launches = 0
+            _build.launches[k] = 0
         frames, frame_ms = [], []
         for cam in frame_cams:
             torch.cuda.synchronize()
@@ -1784,7 +1781,7 @@ def shard_rank(mesh_shape, batch, ckpt_dir, scene, frame_cams):
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
             frames.append(tuple(x.cpu().numpy() for x in (rgb, depth, alpha)))
-        out.update(frame_launches=rc.composite_fwd.launches, frame_ms=frame_ms,
+        out.update(frame_launches=_build.launches["composite_fwd"], frame_ms=frame_ms,
                    frames=frames if mesh.rank == 0 else None)
         del serve
     tr = MeshTrainer(shard_cfg(Config, ckpt_dir), scene, shard_start(torch, dev), mesh=mesh)
@@ -1792,7 +1789,7 @@ def shard_rank(mesh_shape, batch, ckpt_dir, scene, frame_cams):
     # (one per data group there); the step is built at the first step.
     tr.batch = batch
     for k in kernels:
-        k.launches = 0
+        _build.launches[k] = 0
     collectives.timings = {}
     step_ms, metrics = [], []
     for s in range(1, SHARD_STEPS + 1):
@@ -1803,7 +1800,7 @@ def shard_rank(mesh_shape, batch, ckpt_dir, scene, frame_cams):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         metrics.append({k: float(v) for k, v in tr.last_metrics.items()})
     out.update(step_ms=step_ms, metrics=metrics, collectives=collectives.timings,
-               launches={k.__name__: k.launches for k in kernels},
+               launches={k: _build.launches[k] for k in kernels},
                history=tr.densify_history, capacity=tr._global_capacity(),
                shard={name: t.detach().cpu().numpy() for name, t in tr.state.params.fields()},
                alive=tr.state.alive.cpu().numpy(),
@@ -2138,9 +2135,9 @@ def diffusion_phase(torch, rc, tt, Config, gts):
             refresh_log.append((trainer.step, secs, timers[-1].take()))
             return out
 
-        kernels = counted_kernels(rc)
+        kernels = counted_kernels()
         for k in kernels:
-            k.launches = 0
+            _build.launches[k] = 0
         step_s, losses, n_cams = [], [], []
         DiffusionGuidance._ensure_pipeline, DiffusionGuidance.refresh = (timed_ensure,
                                                                          timed_refresh)
@@ -2182,7 +2179,7 @@ def diffusion_phase(torch, rc, tt, Config, gts):
         tiny_cams = tiny.refresh(tr, tr.scene.cameras)
         torch.cuda.synchronize()
         tiny_s = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in kernels}
+        launches = {k: _build.launches[k] for k in kernels}
         n_refresh_views = sum(1 for _ in refresh_log) * 2
         # The tiny refresh renders 16 tiles of 16x64 at 128x128: one digit pass.
         want = {"composite_fwd": DIFF_STEPS + n_refresh_views + len(tiny_cams),
@@ -2338,19 +2335,19 @@ def falls(xs, k=10):
     return statistics.mean(xs[-k:]) < statistics.mean(xs[:k])
 
 
-def run_counted(torch, rc, total, phase, label, fn, want):
+def run_counted(torch, total, phase, label, fn, want):
     """``fn()`` with K1-K3's launch counters from 0; checks them against
     ``want(result)``, adds them to ``total`` and prints the seconds and the
     peak device memory."""
-    kernels = counted_kernels(rc)
+    kernels = counted_kernels()
     for k in kernels:
-        k.launches = 0
+        _build.launches[k] = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = {k: _build.launches[k] for k in kernels}
     check_launches(launches, want(out), f"{phase} {label}")
     for name, n in launches.items():
         total[name] += n
@@ -2370,12 +2367,12 @@ def quality_phase(torch, rc):
         diffusion_ab, quality_bench, quality_real, train_1m_probe, train_diffusion_prior)
 
     phase_t0 = time.perf_counter()
-    total = {k.__name__: 0 for k in counted_kernels(rc)}
+    total = dict.fromkeys(counted_kernels(), 0)
     card = gpu_name_and_limit()
     print(f"phase 13: the quality tools on the card ({card})", flush=True)
 
     def run(label, fn, want):
-        return run_counted(torch, rc, total, "phase 13", label, fn, want)
+        return run_counted(torch, total, "phase 13", label, fn, want)
 
     def one_pass(want):  # grids under 256 tiles: one digit pass a binning
         return dict(want, radix=want["composite_fwd"])
@@ -2540,7 +2537,7 @@ def scaling_model_launches(o):
             "radix": radix, "ssim": (2 + len(bands)) * (1 + it)}
 
 
-def tools_phase(torch, rc):
+def tools_phase(torch):
     """Phase 14: the profiling, sweep and scaling tools on the card; see the
     module docstring. Returns K1-K3's launches over the tools' runs, the
     ranks of scaling_bench included."""
@@ -2548,12 +2545,12 @@ def tools_phase(torch, rc):
         profile_bench, profile_train_step, scaling_bench, scaling_model, sweep_bench)
 
     phase_t0 = time.perf_counter()
-    total = {k.__name__: 0 for k in counted_kernels(rc)}
+    total = dict.fromkeys(counted_kernels(), 0)
     print(f"phase 14: the profiling, sweep and scaling tools on the card "
           f"({gpu_name_and_limit()})", flush=True)
 
     def run(label, fn, want):
-        return run_counted(torch, rc, total, "phase 14", label, fn, want)
+        return run_counted(torch, total, "phase 14", label, fn, want)
 
     def fwd_bwd(n, k3=0):
         return {"composite_fwd": n, "composite_bwd": n, "segsum": k3}
@@ -2660,7 +2657,7 @@ def bench_lines(out, keys, label):
     return headline, final
 
 
-def bench_phase(torch, rc):
+def bench_phase(torch):
     """Phase 15: the headline bench on the card; see the module docstring.
     Returns K1-K3's launches over the bench's in-process runs."""
     import contextlib
@@ -2669,7 +2666,7 @@ def bench_phase(torch, rc):
     from tinysplat_torch.scripts import bench
 
     phase_t0 = time.perf_counter()
-    total = {k.__name__: 0 for k in counted_kernels(rc)}
+    total = dict.fromkeys(counted_kernels(), 0)
     print(f"phase 15: the headline bench on the card ({gpu_name_and_limit()})", flush=True)
     with open(os.path.join(HERE, "BENCH_r05.json")) as f:
         tpu = json.load(f)["parsed"]
@@ -2684,7 +2681,7 @@ def bench_phase(torch, rc):
             with contextlib.redirect_stdout(buf):
                 return bench.main(argv, history=hist)
 
-        record = run_counted(torch, rc, total, "phase 15", f"(a) bench {label}", run_bench,
+        record = run_counted(torch, total, "phase 15", f"(a) bench {label}", run_bench,
                              lambda o: {"composite_fwd": per_run, "composite_bwd": per_run,
                                         "segsum": per_run if label == "mxu" else 0,
                                         "ssim": steps})
@@ -2784,8 +2781,8 @@ def tile_heights_phase(torch, rc, tt, Config, state, deg, bg, cam, frame16, view
     from tinysplat_torch.train_loop import Trainer
 
     phase_t0 = time.perf_counter()
-    kernels = counted_kernels(rc)
-    total = {k.__name__: 0 for k in kernels}
+    kernels = counted_kernels()
+    total = dict.fromkeys(kernels, 0)
     print(f"phase 16: tile heights, {N_SPLATS} splats, {HEIGHT}x{WIDTH} "
           f"({gpu_name_and_limit()})", flush=True)
     with torch.no_grad():
@@ -2798,12 +2795,12 @@ def tile_heights_phase(torch, rc, tt, Config, state, deg, bg, cam, frame16, view
 
     # (a) One frame through render() at each tile shape, counted.
     for k in kernels:
-        k.launches = 0
+        _build.launches[k] = 0
     with torch.no_grad():
         frames = {shape: render(state.params, state.alive, cam, HEIGHT, WIDTH, deg, bg,
                                 tile_size=shape[0], tile_x=shape[1], **budgets[shape])
                   for shape in TILE_SHAPES}
-    got = {k.__name__: k.launches for k in kernels}
+    got = {k: _build.launches[k] for k in kernels}
     want = {"composite_fwd": len(TILE_SHAPES), "composite_bwd": 0, "segsum": 0}
     check_launches(got, want, "phase 16 (a) frames")
     total = {k: total[k] + got[k] for k in total}
@@ -2874,7 +2871,7 @@ def tile_heights_phase(torch, rc, tt, Config, state, deg, bg, cam, frame16, view
         tr = Trainer(cfg, scene, start)
         before = objective(torch, tt, tr, cams)
         for k in kernels:
-            k.launches = 0
+            _build.launches[k] = 0
         losses, drops = [], []
         for step in range(1, TILE_STEPS + 1):
             tr.run(step)
@@ -2882,7 +2879,7 @@ def tile_heights_phase(torch, rc, tt, Config, state, deg, bg, cam, frame16, view
             losses.append(float(m["loss"]))
             drops.append(int(m["n_dup_dropped"]) + int(m["n_tile_dropped"]))
         torch.cuda.synchronize()
-        got = {k.__name__: k.launches for k in kernels}
+        got = {k: _build.launches[k] for k in kernels}
         total = {k: total[k] + got[k] for k in total}
         after = objective(torch, tt, tr, cams)
         print(f"  (b) Trainer at {ts}x{ts} tiles, {reduce}, budgets {b}: launches {got}; "
@@ -3073,7 +3070,7 @@ def splat_phase(torch, rc, tt, state, cam, train, opt, views, gts, cfg):
     # (d) the layer, a frame and a bare step, through the kernels and the
     # plain way (splat_inputs' Function swapped for the plain forward under
     # autograd), in turns: kernels, plain, plain, kernels.
-    kernels = counted_kernels(rc)
+    kernels = counted_kernels()
     step_fn = tt.make_train_step(cfg, HEIGHT, WIDTH)
 
     def one_way(label, step):
@@ -3102,12 +3099,12 @@ def splat_phase(torch, rc, tt, state, cam, train, opt, views, gts, cfg):
     for i, way in enumerate(("kernels", "plain", "plain", "kernels")):
         render_mod.fused_splat_inputs = fused if way == "kernels" else si.splat_fwd_plain
         for k in kernels:
-            k.launches = 0
+            _build.launches[k] = 0
         try:
             step_ms.setdefault(way, []).append(one_way(f"{way} ({i + 1} of 4)", 100 + 10 * i))
         finally:
             render_mod.fused_splat_inputs = fused
-        got = {k.__name__: k.launches for k in kernels}
+        got = {k: _build.launches[k] for k in kernels}
         want = {"composite_fwd": 2 * SPLAT_REPS, "composite_bwd": SPLAT_REPS, "segsum": 0,
                 "splat_fwd": 3 * SPLAT_REPS if way == "kernels" else 0,
                 "splat_bwd": SPLAT_REPS if way == "kernels" else 0}
@@ -3216,14 +3213,14 @@ def ssim_phase(torch, img, gt):
 
     # (b) the loss's SSIM forward and backward: no host sync, one L1 and one L2.
     x = img[None].clone().requires_grad_()
-    fwd, bwd = sc.ssim_fwd.launches, sc.ssim_bwd.launches
+    fwd, bwd = _build.launches["ssim_fwd"], _build.launches["ssim_bwd"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         ssim(x[0], gt).backward()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    launched = (sc.ssim_fwd.launches - fwd, sc.ssim_bwd.launches - bwd)
+    launched = (_build.launches["ssim_fwd"] - fwd, _build.launches["ssim_bwd"] - bwd)
     print(f"  (b) ssim(frame, GT).backward(): no host sync; launches L1, L2 {launched}",
           flush=True)
     if launched != (1, 1):
@@ -3348,13 +3345,13 @@ def scatter_phase(torch, rc, step_rows, step_ranks, step_n):
     for label, (rows, ranks, n) in layouts.items():
         ids = ranks.long()
         sink = torch.where((ids < 0) | (ids >= n), n, ids)
-        before = rc.scatter_rows.launches
+        before = _build.launches["scatter_rows"]
         got = rc.scatter_rows(rows, ranks, n)
         torch.cuda.synchronize()
         ratio, splats, live = scatter_rows_holds(torch, rows, ids, n, got)
-        if rc.scatter_rows.launches != before + 1 or not ratio <= 1.0:
+        if _build.launches["scatter_rows"] != before + 1 or not ratio <= 1.0:
             raise AssertionError(f"phase 20: scatter_rows at {label}: launches "
-                                 f"{rc.scatter_rows.launches - before}, error over its "
+                                 f"{_build.launches['scatter_rows'] - before}, error over its "
                                  f"allowance {ratio}")
         plain_err = float((rc.scatter_rows_plain(rows, ranks, n) - got).abs().max())
         ms = timed_ms(lambda: rc.scatter_rows(rows, ranks, n), SCATTER_REPS, device_only=True)
@@ -3569,7 +3566,7 @@ def binning_phase(torch, rc, tt, state, cam, train, opt, views, gts, cfg):
 
     # (e) the layer, a frame and a bare "scatter" step through the kernels and
     # the plain way (bin_splats_dense_plain swapped into tile_inputs), in turns.
-    kernels = counted_kernels(rc)
+    kernels = counted_kernels()
     step_fn = tt.make_train_step(cfg, HEIGHT, WIDTH)
 
     def one_way(label, step):
@@ -3596,12 +3593,12 @@ def binning_phase(torch, rc, tt, state, cam, train, opt, views, gts, cfg):
     for i, way in enumerate(("kernels", "plain", "plain", "kernels")):
         rc.bin_splats_dense = kernel_binning if way == "kernels" else plain_binning
         for k in kernels:
-            k.launches = 0
+            _build.launches[k] = 0
         try:
             one_way(f"{way} ({i + 1} of 4)", 200 + 10 * i)
         finally:
             rc.bin_splats_dense = kernel_binning
-        got = {k.__name__: k.launches for k in kernels}
+        got = {k: _build.launches[k] for k in kernels}
         bins = 3 * SPLAT_REPS if way == "kernels" else 0  # layer calls, frames, steps
         check_launches(got, {"composite_fwd": 2 * SPLAT_REPS, "composite_bwd": SPLAT_REPS,
                              "segsum": 0, "splat_fwd": 2 * SPLAT_REPS, "bins": bins},
@@ -3623,7 +3620,6 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from tinysplat_torch.data.synthetic import orbit_cameras
     from tinysplat_torch.io.checkpoint import load_model
-    from tinysplat_torch.ops import _build
     from tinysplat_torch.ops import rasterize_cuda as rc
     from tinysplat_torch.probes import timed_ms
     from tinysplat_torch.render import render, splat_inputs
@@ -3705,8 +3701,8 @@ def main() -> int:
         frame(cam)
     torch.cuda.synchronize()
 
-    for k in counted_kernels(rc):
-        k.launches = 0
+    for k in counted_kernels():
+        _build.launches[k] = 0
     frame_ms, host_ms, results = [], [], []
     for cam in cams:
         start = torch.cuda.Event(enable_timing=True)
@@ -3719,7 +3715,7 @@ def main() -> int:
         host_ms.append((time.perf_counter() - t0) * 1e3)
         frame_ms.append(start.elapsed_time(end))
         results.append((rgb, extras))
-    frame_launches = {k.__name__: k.launches for k in counted_kernels(rc)}
+    frame_launches = {k: _build.launches[k] for k in counted_kernels()}
     print(f"  launches during the {FRAMES} frames: {frame_launches}", flush=True)
     check_launches(frame_launches, {"composite_fwd": FRAMES, "composite_bwd": 0, "segsum": 0},
                    "phase 4 frames")
@@ -3836,11 +3832,11 @@ def main() -> int:
     ti0, out0, gout0 = backward_inputs(torch, rc, train, views[0], gts[0], step0_deg, cfg)
 
     step_fn = tt.make_train_step(cfg, HEIGHT, WIDTH)
-    kernels = counted_kernels(rc)
+    kernels = counted_kernels()
     for k in kernels:
-        k.launches = 0
+        _build.launches[k] = 0
     train, log = train_steps(torch, step_fn, train, opt, views, gts, 0, SCATTER_STEPS)
-    train_launches = {k.__name__: k.launches for k in kernels}
+    train_launches = {k: _build.launches[k] for k in kernels}
     losses = [float(m["loss"]) for m, _, _, _ in log]
     print(f"  scatter steps: launches {train_launches}; losses "
           f"{[round(x, 5) for x in losses]}; psnr {[round(float(m['psnr']), 3) for m, *_ in log]}",
@@ -3870,10 +3866,10 @@ def main() -> int:
     if max(grad_err.values()) > BWD_TOL:
         raise AssertionError("the mxu path's gradients differ from the scatter path's")
     for k in kernels:
-        k.launches = 0
+        _build.launches[k] = 0
     train, mxu_log = train_steps(torch, tt.make_train_step(mxu_cfg, HEIGHT, WIDTH), train, opt,
                                  views, gts, SCATTER_STEPS, MXU_STEPS)
-    mxu_launches = {k.__name__: k.launches for k in kernels}
+    mxu_launches = {k: _build.launches[k] for k in kernels}
     print(f"  mxu steps: launches {mxu_launches}; losses "
           f"{[round(float(m['loss']), 5) for m, *_ in mxu_log]}", flush=True)
     check_steps(torch, mxu_log, "mxu")
@@ -3943,10 +3939,10 @@ def main() -> int:
     quality_launches = quality_phase(torch, rc)
 
     # -- 14. the profiling, sweep and scaling tools ------------------------------------------
-    tools_launches = tools_phase(torch, rc)
+    tools_launches = tools_phase(torch)
 
     # -- 15. the headline bench -------------------------------------------------------------
-    bench_launches = bench_phase(torch, rc)
+    bench_launches = bench_phase(torch)
 
     # -- 16. tile heights other than 16 px ------------------------------------------------------
     tile_launches = tile_heights_phase(torch, rc, tt, Config, state, deg, bg, cams[0],

@@ -18,6 +18,8 @@ from tinysplat_tpu.data.synthetic import orbit_cameras, random_gaussian_cloud
 from tinysplat_tpu.models.gaussians import GaussianParams
 from tinysplat_tpu.render import render
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 H = W = 64
 N = 80
 

@@ -10,7 +10,10 @@ product rebuilds T to ~1e-6). The CUDA kernels themselves are held against
 the plain versions on the card (``chip_smoke.py`` and the JAX-free
 ``test_torch_port_cuda.py``).
 """
+import collections
+import contextlib
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -22,10 +25,13 @@ from tinysplat_tpu.ops import rasterize_pallas as rp
 from tinysplat_tpu.ops.rasterize_dense import rasterize_dense as jax_dense
 from tinysplat_tpu.ops.rasterize_pallas import rasterize_pallas
 
+from tinysplat_torch.ops import _build
 from tinysplat_torch.ops import rasterize_cuda as rc
 
 from test_rasterize_tiled import random_case, to_jnp
 from test_torch_port_rasterize import _torch_args
+
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 FIELDS = ("xys", "conics", "colors", "opac")
 
@@ -295,9 +301,9 @@ def test_scatter_rows_plain_is_todays_index_add(name):
     """On CPU tensors ``scatter_rows`` launches nothing and gives the bytes of
     the ``index_add_`` expression it replaced, the sentinel row exactly 0."""
     rows, ranks, n = SCATTER_CASES[name]()
-    before = rc.scatter_rows.launches
+    before = _build.launches["scatter_rows"]
     got = rc.scatter_rows(rows, ranks, n)
-    assert rc.scatter_rows.launches == before
+    assert _build.launches["scatter_rows"] == before
     ref = _todays_scatter(rows, ranks, n)
     assert got.shape == (n + 1, rc.TABLE_COLS) and got.dtype == torch.float32
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
@@ -357,16 +363,53 @@ def test_segsum_plain_sums_runs_in_order():
             acc = acc + rows[int(perm[p])]
         return acc
 
-    before = rc.segsum.launches
+    before = _build.launches["segsum"]
     bounds = torch.tensor([0, 0, 3, 3, 10, 49, 50, 50], dtype=torch.int32)
     got = rc.segsum(rows, perm, bounds)
-    assert rc.segsum.launches == before  # CPU tensors never reach the kernel
+    assert _build.launches["segsum"] == before  # CPU tensors never reach the kernel
     for i in range(bounds.shape[0] - 1):
         assert torch.equal(got[i], in_order(int(bounds[i]), int(bounds[i + 1]))), i
     # Bounds past the rows are clamped, never read out of range.
     clamped = rc.segsum(rows, perm, torch.tensor([45, 60, 80], dtype=torch.int32))
     assert torch.equal(clamped[0], in_order(45, 50))
     assert (clamped[1] == 0).all()
+
+
+def test_launch_counts_each_accepted_launch_by_symbol(monkeypatch):
+    """``_build.launch`` counts one launch in ``_build.launches`` under the
+    entry point's symbol (the source's name when none is given) once the
+    entry point returns 0; a refused launch raises and counts nothing; and
+    ``scatter_rows`` and ``segsum`` on CPU tensors never reach it."""
+    calls, errors = [], {}
+
+    def fake_function(name, symbol, argtypes):
+        def entry_point(*args):
+            calls.append((name, symbol, args))
+            return errors.get(symbol, 0)
+        return entry_point
+
+    monkeypatch.setattr(_build, "function", fake_function)
+    monkeypatch.setattr(_build, "launches", collections.Counter())
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=77))
+    _build.launch("segsum", (), "cuda:0", 1, 2)
+    _build.launch("segsum", (), "cuda:0")
+    _build.launch("binning", (), "cuda:0", symbol="bin_emit")
+    assert dict(_build.launches) == {"segsum": 2, "bin_emit": 1}
+    assert calls == [("segsum", "segsum", (1, 2, 77)), ("segsum", "segsum", (77,)),
+                     ("binning", "bin_emit", (77,))]
+
+    errors["radix_hist"] = 700
+    with pytest.raises(RuntimeError, match="radix_hist kernel launch failed: CUDA error 700"):
+        _build.launch("binning", (), "cuda:0", symbol="radix_hist")
+    assert len(calls) == 4 and dict(_build.launches) == {"segsum": 2, "bin_emit": 1}
+
+    rows, ranks, _ = _random_rows(d=50)
+    rc.scatter_rows(rows, ranks, 60)
+    rc.segsum(rows, torch.arange(50, dtype=torch.int32),
+              torch.tensor([0, 10, 50], dtype=torch.int32))
+    assert len(calls) == 4 and dict(_build.launches) == {"segsum": 2, "bin_emit": 1}
 
 
 def _gathered_segsum(gs, bounds):

@@ -39,6 +39,8 @@ from tinysplat_torch.render import render
 from tinysplat_torch.scripts import bench
 from tinysplat_torch.train import init_opt_state, make_train_step
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_BENCH = os.path.join(REPO, "bench.py")
 N, H, W = 2048, 64, 96
@@ -46,19 +48,6 @@ SMALL = ["--device", "cpu", "--n", str(N), "--height", str(H), "--width", str(W)
 LOSS_RTOL, FIELD_TOL = 1e-5, 5e-4
 TRAIN_KEYS = {"train_step_ms", "train_steps_per_s", "rays_per_s"}
 FIELDS = ("means", "colors_dc", "colors_rest", "scales", "quats", "opacities")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch's CPU ops run on the calling thread only. In a process that had
-    run JAX, torch's ``exp`` of the 6,144 log-scales came back up to 1.5e-4
-    off on one worker thread's chunk in a few first calls (the calling
-    thread's chunk never was), which moved the bench gradient 5.7e-4 x max;
-    the plain compositing walk is no faster on more threads."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def jax_bench_flags():

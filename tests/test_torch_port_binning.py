@@ -20,6 +20,8 @@ from tinysplat_tpu.ops.projection import project_gaussians
 
 from tinysplat_torch.ops.binning import bin_splats_dense
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 W, H, N = 160, 96, 500
 
 

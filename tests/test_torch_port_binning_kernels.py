@@ -25,6 +25,8 @@ from tinysplat_tpu.ops.binning import bin_splats_dense as jax_bin
 from tinysplat_torch.ops import binning, binning_cuda
 from tinysplat_torch.ops.binning import bin_splats_dense
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 W, H, N = 200, 136, 1500
 
 

@@ -17,6 +17,7 @@ from tinysplat_torch.config import Config
 from tinysplat_torch.io import checkpoint as tck
 from tinysplat_torch.models.gaussians import PARAM_FIELDS
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
 from tests.test_torch_port_densify import jax_pair, make_arrays, torch_pair
 
 EXTRAS = {"pose_deltas": np.arange(12, dtype=np.float32).reshape(2, 6),

@@ -18,7 +18,7 @@ from tinysplat_tpu.io.checkpoint import load_checkpoint as jax_load_checkpoint
 from tinysplat_torch import train_cli
 from tinysplat_torch.io import checkpoint as tck
 
-from tests.test_torch_port_trainer import _two_torch_threads  # noqa: F401 (autouse)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

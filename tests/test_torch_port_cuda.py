@@ -22,11 +22,16 @@ import pytest
 import torch
 
 from tinysplat_torch.data.synthetic import orbit_cameras
+from tinysplat_torch.ops import _build
 from tinysplat_torch.ops import rasterize_cuda as rc
 from tinysplat_torch.ops import splat_inputs_cuda as si
 from tinysplat_torch.ops import ssim_cuda as sc
 from tinysplat_torch.ops.sh import SH_C0, eval_sh
 from tinysplat_torch.probes import bitcast, op_costs
+
+# By its bare name (pytest puts tests/ on the path): an installed package
+# named ``tests`` would shadow this directory's ``tests.`` prefix.
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _need_card():
@@ -111,9 +116,9 @@ DEEP = ("deep tile_x=64", "deep tile_x=48", "deep 32x32")
 @pytest.mark.parametrize("name", list(CASES))
 def test_k1_bit_equal_to_plain(name):
     ti, args, out, _ = CASES[name]()
-    before = rc.composite_fwd.launches
+    before = _build.launches["composite_fwd"]
     got = rc.composite_fwd(*args, ti.tile_x, ti.tile_h)
-    assert rc.composite_fwd.launches == before + 1
+    assert _build.launches["composite_fwd"] == before + 1
     ref = rc.composite_fwd_plain(*args, ti.tile_x, ti.tile_h)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
@@ -133,9 +138,9 @@ def test_deep_cases_are_deep_and_uneven():
 @pytest.mark.parametrize("name", list(CASES))
 def test_k2_matches_plain(name):
     ti, args, out, gout = CASES[name]()
-    before = rc.composite_bwd.launches
+    before = _build.launches["composite_bwd"]
     got = rc.composite_bwd(*args, out, gout, ti.tile_x, ti.tile_h)
-    assert rc.composite_bwd.launches == before + 1
+    assert _build.launches["composite_bwd"] == before + 1
     again = rc.composite_bwd(*args, out, gout, ti.tile_x, ti.tile_h)
     ref = rc.composite_bwd_plain(*args, out, gout, ti.tile_x, ti.tile_h)
     torch.cuda.synchronize()
@@ -238,9 +243,9 @@ def test_nan_opacity_matches_plain():
 def _k3_bit_equal(rows, perm, bounds):
     """K3 twice and its plain version on the same inputs: one launch each,
     the same bytes every time."""
-    before = rc.segsum.launches
+    before = _build.launches["segsum"]
     got = rc.segsum(rows, perm, bounds)
-    assert rc.segsum.launches == before + 1
+    assert _build.launches["segsum"] == before + 1
     again = rc.segsum(rows, perm, bounds)
     ref = rc.segsum_plain(rows, perm, bounds)
     torch.cuda.synchronize()
@@ -385,9 +390,9 @@ def test_scatter_rows_matches_a_float64_index_add(name):
     float32 rounding of its k adds in any order, as the atomics' order
     changes from launch to launch (``chip_smoke.scatter_rows_holds``)."""
     rows, ranks, n = SCATTER_CASES[name]()
-    before = rc.scatter_rows.launches
+    before = _build.launches["scatter_rows"]
     got = rc.scatter_rows(rows, ranks, n)
-    assert rc.scatter_rows.launches == before + 1
+    assert _build.launches["scatter_rows"] == before + 1
     torch.cuda.synchronize()
     assert got.shape == (n + 1, 10) and got.dtype == torch.float32
     assert (got[n].view(torch.int32) == 0).all()
@@ -419,9 +424,9 @@ def test_p1_bitcast_exact_and_equal_to_plain(variant):
     _need_card()
     gt = bitcast.ground_truth()
     x = bitcast.variant_input(variant, gt, "cuda")
-    before = bitcast.probe_bitcast.launches
+    before = _build.launches["probe_bitcast"]
     got = bitcast.probe_bitcast(variant, x)
-    assert bitcast.probe_bitcast.launches == before + 1
+    assert _build.launches["probe_bitcast"] == before + 1
     torch.cuda.synchronize()
     assert bitcast.exact(variant, got, gt)
     assert bitcast.same_bits(got, bitcast.probe_bitcast_plain(variant, x))
@@ -444,9 +449,9 @@ def test_p1_bitcast_rejects_unaligned_input():
 def test_p2_op_costs_match_plain(op):
     _need_card()
     x = op_costs.tile(128, "cuda")
-    before = op_costs.probe_op_costs.launches
+    before = _build.launches["probe_op_costs"]
     got = op_costs.probe_op_costs(op, x)
-    assert op_costs.probe_op_costs.launches == before + 1
+    assert _build.launches["probe_op_costs"] == before + 1
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     tol = op_costs.TOLERANCE.get(op, 0.0)
@@ -601,9 +606,9 @@ def _splat_case(n, stored_deg, seed):
 def test_s1_matches_plain(n, deg):
     args, layout = _splat_case(n, deg, seed=10 * n + deg)
     for active in sorted({deg, max(deg - 1, 0)}):
-        before = si.splat_fwd.launches
+        before = _build.launches["splat_fwd"]
         got = si.splat_fwd(*args, active, layout)
-        assert si.splat_fwd.launches == before + 1
+        assert _build.launches["splat_fwd"] == before + 1
         ref = si.splat_fwd_plain(*args, active, layout)
         torch.cuda.synchronize()
         report = si.forward_mismatch(got, ref, layout.tile_size)
@@ -648,9 +653,9 @@ def _s2_holds(args, bargs, n):
             sides = [c0 * g] if colour[j, ch] > 0 else [c0 * (g / 2), c0 * 0.0]
             assert any(torch.equal(g_dc[j, ch], x) for x in sides), (j, ch)
     for cam_grad in (False, True):
-        before = si.splat_bwd.launches
+        before = _build.launches["splat_bwd"]
         got = si.splat_bwd(*off, cam_grad)
-        assert si.splat_bwd.launches == before + 1
+        assert _build.launches["splat_bwd"] == before + 1
         again = si.splat_bwd(*off, cam_grad)
         ref = si.splat_bwd_plain(*off, cam_grad)
         torch.cuda.synchronize()
@@ -831,9 +836,9 @@ def test_radix_sort_equals_stable_sort(num_tiles):
     counters = torch.tensor([n, n, 0], dtype=torch.int32, device="cuda")
     full = torch.zeros(num_tiles, dtype=torch.int32, device="cuda")
     out = torch.full((cap,), -1, dtype=torch.int32, device="cuda")
-    before = bc.radix_scatter.launches
+    before = _build.launches["radix_scatter"]
     bc.sort_by_tile(k.clone(), v.clone(), counters, num_tiles, full, out)
-    assert bc.radix_scatter.launches - before == bc.radix_passes(num_tiles)
+    assert _build.launches["radix_scatter"] - before == bc.radix_passes(num_tiles)
     want = torch.sort(k[:n], stable=True).indices.to(torch.int32)
     assert torch.equal(out[:n], want) and bool((out[n:] == -1).all())
     assert torch.equal(full, torch.bincount(k[:n].long(), minlength=num_tiles).int())
@@ -897,11 +902,11 @@ def test_ssim_kernels_match_plain_and_repeat(name):
     x, y = _ssim_pair(n, h, w, seed=h + w)
     window = sc.gaussian_window(11, 1.5)
     c1, c2 = 0.01**2, 0.03**2
-    before = sc.ssim_fwd.launches
+    before = _build.launches["ssim_fwd"]
     smap, parts = sc.ssim_fwd(x, y, window, c1, c2, 4)
     again = sc.ssim_fwd(x, y, window, c1, c2, 4)
     only_map = sc.ssim_fwd(x, y, window, c1, c2)
-    assert sc.ssim_fwd.launches == before + 3 and only_map[1] is None
+    assert _build.launches["ssim_fwd"] == before + 3 and only_map[1] is None
     ref_map, ref_parts = sc.ssim_fwd_plain(x, y, window, c1, c2, 4)
     torch.cuda.synchronize()
     assert float((smap - ref_map).abs().max()) <= sc.TOL
@@ -911,10 +916,10 @@ def test_ssim_kernels_match_plain_and_repeat(name):
                          .astype(np.float32)).cuda()
     for mu, me, other in ((sc.MU_X, x, y), (sc.MU_Y, y, x)):
         args = (g, ref_parts[mu], ref_parts[sc.E_XX], ref_parts[sc.E_XY], me, other, window)
-        before = sc.ssim_bwd.launches
+        before = _build.launches["ssim_bwd"]
         got, twice = sc.ssim_bwd(*args), sc.ssim_bwd(*args)
         chained = sc.ssim_bwd(g, parts[mu], parts[sc.E_XX], parts[sc.E_XY], me, other, window)
-        assert sc.ssim_bwd.launches == before + 3
+        assert _build.launches["ssim_bwd"] == before + 3
         ref = sc.ssim_bwd_plain(*args)
         torch.cuda.synchronize()
         assert _scaled_err(got, ref) <= sc.TOL, mu
@@ -980,10 +985,10 @@ def test_a_trainer_step_runs_ssim_through_l1_and_l2():
                         interval_opacity_reset=0, prefetch_images=False, seed=5),
                  Scene(cams, seed=1), state)
     tr.train_step()
-    fwd, bwd = sc.ssim_fwd.launches, sc.ssim_bwd.launches
+    fwd, bwd = _build.launches["ssim_fwd"], _build.launches["ssim_bwd"]
     tr.train_step()
     torch.cuda.synchronize()
-    assert (sc.ssim_fwd.launches - fwd, sc.ssim_bwd.launches - bwd) == (1, 1)
+    assert (_build.launches["ssim_fwd"] - fwd, _build.launches["ssim_bwd"] - bwd) == (1, 1)
 
 
 @pytest.mark.cuda
@@ -1008,11 +1013,11 @@ def test_a_trainer_step_reduces_through_scatter_rows():
                         prefetch_images=False, seed=5), Scene(cams, seed=1), state)
     tr.train_step()
     torch.cuda.synchronize()
-    before = rc.scatter_rows.launches
+    before = _build.launches["scatter_rows"]
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         tr.train_step()
         torch.cuda.synchronize()
-    assert rc.scatter_rows.launches == before + 1
+    assert _build.launches["scatter_rows"] == before + 1
 
     def under_reduce(e):
         while e is not None:

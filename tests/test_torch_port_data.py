@@ -28,6 +28,8 @@ from tinysplat_torch import train_cli
 from tinysplat_torch.config import Config
 from tinysplat_torch.data import BlenderDataset, Dataset, colmap, orbit_cameras
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "real_colmap")
 SPARSE = os.path.join(FIXTURE, "sparse", "0")

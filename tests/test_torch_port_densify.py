@@ -25,6 +25,8 @@ from tinysplat_torch.models import densify as td
 from tinysplat_torch.models import gaussians as tg
 from tinysplat_torch.train_loop import grow_opt_state
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 FIELDS = tg.PARAM_FIELDS
 CAP, N = 64, 16
 ATOL = 1e-6

@@ -29,7 +29,7 @@ from tinysplat_torch.data.synthetic import orbit_cameras
 from tinysplat_torch.models.gaussians import PARAM_FIELDS, GaussianParams
 from tinysplat_torch.regularizers import density as pd
 
-from tests.test_torch_port_trainer import _two_torch_threads  # noqa: F401 (autouse)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 CAP, N, OFFSET = 256, 200, np.asarray([4.0, -3.0, 6.0], np.float32)
 H, W = 48, 64

@@ -40,7 +40,7 @@ from tinysplat_torch.depthest.backends import FunctionBackend
 from tinysplat_torch.models.gaussians import PARAM_FIELDS
 from tinysplat_torch.scene import Scene
 
-from tests.test_torch_port_trainer import _two_torch_threads  # noqa: F401 (autouse)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "real_colmap")

@@ -51,7 +51,7 @@ from tinysplat_torch.utils.rays import unproj_map
 from tinysplat_torch.utils.resize import resize
 
 from tests.test_diffusion_port import UNET_CFG, VAE_CFG, unet_torch_keys, vae_torch_keys
-from tests.test_torch_port_trainer import _two_torch_threads  # noqa: F401 (autouse)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 MODULE_TOL, PIPE_TOL, RESIZE_TOL = 1e-5, 1e-4, 2e-5
 S = 4  # tiny latent size: images 32 x 32, feature-encoder input 8 x 8

@@ -43,8 +43,8 @@ from tinysplat_torch.parallel import MeshTrainer
 from tinysplat_torch.regularizers import diffusion_guidance as dg
 from tinysplat_torch.train_loop import Trainer
 
-from tests.test_torch_port_trainer import (  # noqa: F401 (autouse fixture)
-    _two_torch_threads, jax_start, leaves_of, port_scene)
+from tests._torch_threads import one_torch_thread  # noqa: F401
+from tests.test_torch_port_trainer import jax_start, leaves_of, port_scene
 from tests.test_train_loop import _toy_scene as jax_toy_scene
 
 SIZE, CAMS = 32, 4

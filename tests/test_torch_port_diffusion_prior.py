@@ -39,7 +39,7 @@ from tinysplat_torch.scripts import diffusion_ab, train_diffusion_prior as tdp
 
 from tests.test_torch_port_quality import (
     _recording_trainer, jax_json_keys, jax_script, run_jax_main)
-from tests.test_torch_port_trainer import _two_torch_threads  # noqa: F401 (autouse)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 LOSS_RTOL, WEIGHT_TOL, DENOISER_TOL = 1e-4, 1e-5, 1e-4
 PRIOR = ["--views", "6", "--sample-size", "4", "--batch", "2", "--vae-steps", "3",

@@ -23,6 +23,8 @@ from tinysplat_torch.io.checkpoint import save_checkpoint
 from tinysplat_torch.io.export import export_mesh_obj, export_ply, export_splat, import_ply
 from tinysplat_torch.models.gaussians import PARAM_FIELDS
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 N, CAP = 150, 256
 
 

@@ -20,6 +20,8 @@ from tinysplat_torch.ops.projection import project_gaussians
 from tinysplat_torch.ops.sh import eval_sh, num_sh_bases
 from tinysplat_torch.utils.quaternions import quat_to_rotmat, random_quats
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 W, H = 96, 64
 
 

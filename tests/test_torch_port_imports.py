@@ -15,6 +15,8 @@ import torch
 import tinysplat_torch as tt
 from tinysplat_torch.data.synthetic import orbit_cameras, synthetic_pcd
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tinysplat_tpu", "__graft_entry__")
 

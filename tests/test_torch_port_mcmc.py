@@ -44,12 +44,12 @@ from tinysplat_torch.models.gaussians import PARAM_FIELDS
 from tinysplat_torch.regularizers.density import DensityProbe
 from tinysplat_torch.train_loop import Trainer
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
 from tests.test_torch_port_train import CFG, STEP, H, W, _cam, _gt, _jax_state, _leaves
-from tests.test_torch_port_trainer import (  # noqa: F401 (autouse fixture)
+from tests.test_torch_port_trainer import (
     CAMS,
     SIZE,
     _close_to_max,
-    _two_torch_threads,
     jax_start,
     jax_toy_scene,
     leaves_of,

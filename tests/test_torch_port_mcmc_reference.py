@@ -41,6 +41,8 @@ from tinysplat_torch.scene import Scene
 
 from splatbench import cells, spec
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 mcmc = spec.objective("mcmc")
 SEED = 9876543210987
@@ -48,14 +50,6 @@ FLOOR = 0.005
 MCMC = dict(densify_strategy="mcmc", sh_degree=1, mcmc_min_opacity=FLOOR,
             mcmc_growth_factor=1.05, lambda_mcmc_opacity=0.01, lambda_mcmc_scale=0.01)
 REF_CFG = dict(mcmc_min_opacity=FLOOR, mcmc_cap=0, mcmc_growth_factor=1.05)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def splats(n, seed, logits=(-7.0, 3.0), scales=(0.02, 0.2)):

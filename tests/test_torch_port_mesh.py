@@ -34,7 +34,7 @@ from tinysplat_torch.data.synthetic import orbit_cameras
 from tinysplat_torch.io.checkpoint import save_checkpoint
 from tinysplat_torch.models.gaussians import PARAM_FIELDS
 
-from tests.test_torch_port_trainer import _two_torch_threads  # noqa: F401 (autouse)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 N, CAP = 160, 192
 

@@ -49,6 +49,7 @@ from tinysplat_torch.regularizers.density import DensityProbe
 from tinysplat_torch.train import lr_tree
 
 from tests import _torch_ranks as ranks
+from tests._torch_threads import one_torch_thread  # noqa: F401
 from tests.test_parallel import B, CAP, H, N, W, _setup
 from tests.test_torch_port_trainer import PARITY, jax_start, leaves_of, port_scene
 from tests.test_train_loop import _toy_scene as jax_toy_scene

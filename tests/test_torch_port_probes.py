@@ -27,6 +27,8 @@ from jax.experimental import pallas as pl
 
 from tinysplat_torch.probes import bitcast, op_costs
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -39,7 +39,7 @@ import torch
 from tinysplat_torch.config import Config
 from tinysplat_torch.scripts import evaluate, quality_bench, train_1m_probe
 
-from tests.test_torch_port_trainer import _two_torch_threads  # noqa: F401 (autouse)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = os.path.join(REPO, "scripts")

@@ -25,7 +25,7 @@ from tinysplat_torch.scripts import make_real_fixture, quality_real
 
 from tests.test_torch_port_quality import (
     FIXTURE, _recording_trainer, jax_json_keys, jax_script, run_jax_main)
-from tests.test_torch_port_trainer import _two_torch_threads  # noqa: F401 (autouse)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def _tree(root):

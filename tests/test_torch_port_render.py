@@ -25,6 +25,8 @@ from tinysplat_tpu.render import render as jax_render
 import tinysplat_torch as tt
 from tinysplat_torch.data.synthetic import orbit_cameras
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 H = W = 64
 N = 300
 FIELDS = ("means", "colors_dc", "colors_rest", "scales", "quats", "opacities")

@@ -32,6 +32,8 @@ from tinysplat_torch.scene import Scene
 from tinysplat_torch.train_loop import Trainer
 from tinysplat_torch.utils import profiling
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 CAMS = 2
 # The span each span opens inside, in a step (then in a frame).
 STEP_PARENT = {

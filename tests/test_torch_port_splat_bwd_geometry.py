@@ -13,6 +13,8 @@ import pytest
 
 from tinysplat_torch.ops import splat_inputs_cuda as si
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 SOURCE = Path(si.__file__).resolve().parent.parent / "csrc" / "splat_bwd.cu"
 KS = (1, 4, 9, 16, 25)
 NS = (0, 1, 127, 128, 129, 524_288, 1_048_576)

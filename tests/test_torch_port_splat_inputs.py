@@ -30,6 +30,8 @@ from tinysplat_torch.render import splat_inputs
 from tinysplat_torch.data.synthetic import orbit_cameras
 from tinysplat_torch.ops import splat_inputs_cuda as si
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 # the module (the package's ``render`` attribute is the function)
 jrender = importlib.import_module("tinysplat_tpu.render")
 
@@ -41,16 +43,6 @@ CX_OFF, CY_OFF = 1.5, -2.25
 # Edge rows of the edge scene (indices into its N splats).
 BEHIND, FOV, ZERO_QUAT, SH_TIE, NAN_OPACITY, NEEDLES, NEAR_ZERO = (
     [0, 1], [2, 3], [4], [5], [6], list(range(10, 40)), [7])
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch's CPU ops on the calling thread only (a worker thread's exp can
-    come back a few ulps off in a process that has run JAX)."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _camera():

@@ -15,6 +15,8 @@ from tinysplat_tpu.ops import ssim as jssim
 from tinysplat_torch.ops import ssim as tssim
 from tinysplat_torch.ops import ssim_cuda
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 
 def _pair(h, w, noise, seed):
     rng = np.random.default_rng(seed)

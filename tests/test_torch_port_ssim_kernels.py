@@ -23,6 +23,8 @@ from tinysplat_tpu.ops import ssim as jssim
 from tinysplat_torch.ops import ssim as tssim
 from tinysplat_torch.ops import ssim_cuda as sc
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 C1, C2 = 0.01**2, 0.03**2
 SHAPES = {"11x11": (1, 11, 11), "odd width": (1, 29, 53), "N=3": (3, 24, 37),
           "band+halo": (4, 16 + 10, 48)}

@@ -15,10 +15,10 @@ them; the 2-rank mesh trainer against the one-device trainer as
 tests/test_torch_port_parallel.py holds the mesh trainer. Work counters
 are held against a brute-force count.
 
-torch runs on one thread here: in a process that has run JAX, torch's CPU
-``exp`` on a worker thread came back up to 1.5e-4 off in a few first calls
-(ROADMAP Queue 3, "torch's CPU exp on a worker thread"), more than the
-gradient bar allows.
+torch runs on one thread here (tests/_torch_threads.py): in a process that
+has run JAX, torch's CPU ``exp`` on a worker thread came back up to 1.5e-4
+off in a few first calls (ROADMAP Queue 3, "torch's CPU exp on a worker
+thread"), more than the gradient bar allows.
 """
 import functools
 
@@ -47,6 +47,7 @@ from tinysplat_torch.scene import Scene
 from tinysplat_torch.train_loop import Trainer
 
 from tests import _torch_ranks as ranks
+from tests._torch_threads import one_torch_thread  # noqa: F401
 from tests.test_rasterize_tiled import random_case, to_jnp
 from tests.test_torch_port_backward import _brute_counts
 from tests.test_torch_port_rasterize import _torch_args
@@ -57,14 +58,6 @@ from tests.test_torch_port_trainer import PARITY
 
 IMG_TOL, GRAD_TOL = 2e-4, 5e-4
 STEP = 3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _case():

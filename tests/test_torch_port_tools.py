@@ -40,7 +40,8 @@ from tinysplat_torch.scripts import (
     profile_bench, profile_train_step, quality_bench, scaling_bench, scaling_model, sweep_bench)
 from tinysplat_torch.utils import profiling
 
-from tests.test_torch_port_trainer import _two_torch_threads, leaves_of  # noqa: F401 (autouse)
+from tests._torch_threads import one_torch_thread  # noqa: F401
+from tests.test_torch_port_trainer import leaves_of
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = {"profile_bench": profile_bench, "profile_train_step": profile_train_step,

@@ -36,6 +36,8 @@ from tinysplat_torch import train as pt
 from tinysplat_torch.config import Config
 from tinysplat_torch.data.synthetic import orbit_cameras
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
+
 H, W, N, CAP = 32, 48, 120, 128
 FIELDS = ("means", "colors_dc", "colors_rest", "scales", "quats", "opacities")
 STEP = 3

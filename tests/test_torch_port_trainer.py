@@ -50,17 +50,8 @@ from tinysplat_torch.scene import Scene
 from tinysplat_torch.parallel import MeshTrainer
 from tinysplat_torch.train_loop import Trainer
 
+from tests._torch_threads import one_torch_thread  # noqa: F401
 from tests.test_train_loop import _toy_scene as jax_toy_scene
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """The suite runs in several worker processes at once: small torch ops
-    on every core of each would oversubscribe the machine."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 SIZE, CAMS = 48, 4
 PARITY = dict(rasterizer="dense", sh_degree=1, background="black", warmup_grad=0,

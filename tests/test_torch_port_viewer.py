@@ -32,7 +32,7 @@ from tinysplat_torch.scene import Scene
 from tinysplat_torch.train_loop import Trainer
 from tinysplat_torch.viewer import Client, Viewer, encode_jpeg_base64
 
-from tests.test_torch_port_trainer import _two_torch_threads  # noqa: F401 (autouse)
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 SIZE, STEPS = 32, 8
 CFG = dict(rasterizer="dense", sh_degree=1, background="random", warmup_grad=0,

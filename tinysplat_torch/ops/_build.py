@@ -7,6 +7,10 @@ The library's file name carries a hash of its source, of the shared
 headers (``csrc/*.cuh``) and of its flags, so an edited source is rebuilt
 and a stale library is never loaded. Several sources build in
 parallel: one ``nvcc`` process each, all started together.
+
+Every launch goes through :func:`launch`, which counts it in ``launches``
+under its entry point's symbol (``launches["composite_fwd"]``): the one
+count of which kernels ran, and how often, that the card's checks read.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -34,6 +39,10 @@ EXTRA_FLAGS = {"splat_fwd": ("-fmad=false",), "splat_bwd": ("-fmad=false",),
                "binning": ("-fmad=false",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# Accepted launches by entry-point symbol. A viewer thread and the trainer's
+# thread may both launch: ``launches[k] += 1`` may then lose a count, as any
+# unlocked increment may; a diagnostic count takes no lock.
+launches: Counter = Counter()
 # A viewer thread and the trainer's thread may launch a kernel first at once.
 _load_lock = threading.Lock()
 
@@ -119,8 +128,9 @@ def function(name: str, symbol: str, argtypes: tuple):
 
 def launch(name: str, argtypes: tuple, device, *args, symbol: str = "") -> None:
     """Launch entry point ``symbol`` (default: ``name``) of source ``name``
-    on ``device``'s current stream (passed as the last argument); raises if
-    the launch was refused (every entry point returns cudaGetLastError())."""
+    on ``device``'s current stream (passed as the last argument) and count
+    it in ``launches[symbol]``; raises, and counts nothing, if the launch
+    was refused (every entry point returns cudaGetLastError())."""
     import torch
 
     symbol = symbol or name
@@ -129,3 +139,4 @@ def launch(name: str, argtypes: tuple, device, *args, symbol: str = "") -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
+    launches[symbol] += 1

@@ -18,11 +18,11 @@ the host can queue the compositing kernel behind the binning.
   passes); B3's first pass also counts whole tile ids (``full_counts``),
   whose exclusive scan is ``tile_starts``.
 
-Every wrapper launches its kernel on CUDA tensors (counted in its
-``launches``) or raises; CPU tensors run its plain version, which computes
-the same outputs with torch ops (and reads sizes on the host). Integer
-outputs are compared bit for bit. Entries past ``num_entries`` in B2's and
-B4's intermediate buffers are undefined; ``entry_rank`` is -1 there.
+Every wrapper launches its kernel on CUDA tensors (counted in
+``_build.launches``) or raises; CPU tensors run its plain version, which
+computes the same outputs with torch ops (and reads sizes on the host).
+Integer outputs are compared bit for bit. Entries past ``num_entries`` in
+B2's and B4's intermediate buffers are undefined; ``entry_rank`` is -1 there.
 """
 from __future__ import annotations
 
@@ -132,7 +132,7 @@ def bin_count_plain(order, xys, radii, valid, geom: BinGeometry, conics=None,
 
 def bin_count(order, xys, radii, valid, geom: BinGeometry, conics=None, opacities=None):
     """Each depth rank's row and entry counts (int32): B1 on CUDA tensors
-    (``bin_count.launches`` counts the launches), ``bin_count_plain`` on CPU
+    (``_build.launches["bin_count"]``), ``bin_count_plain`` on CPU
     tensors. ``order`` is the depth order (``binning.depth_order``)."""
     if _device_kind(xys, "bin_count") == "cpu":
         return bin_count_plain(order, xys, radii, valid, geom, conics, opacities)
@@ -142,11 +142,7 @@ def bin_count(order, xys, radii, valid, geom: BinGeometry, conics=None, opacitie
     ents = torch.empty(n, dtype=torch.int32, device=xys.device)
     _launch("bin_count", xys.device, *(_ptr(x) for x in ins), *_geom_args(geom, n),
             rows.data_ptr(), ents.data_ptr())
-    bin_count.launches += 1
     return rows, ents
-
-
-bin_count.launches = 0
 
 
 def bin_emit_plain(order, xys, radii, valid, geom: BinGeometry, caps: Budgets, conics=None,
@@ -174,7 +170,7 @@ def bin_emit(order, xys, radii, valid, geom: BinGeometry, caps: Budgets, rows, e
     """The kept entries in depth order: (tile_of, rank_of) int32 buffers of
     ``dup_capacity`` (defined up to num_entries) and the int32 counters
     [num_entries, total_intersections, dup_overflow]. B2 on CUDA tensors
-    (``bin_emit.launches``), ``bin_emit_plain`` on CPU tensors.
+    (``_build.launches["bin_emit"]``), ``bin_emit_plain`` on CPU tensors.
     ``rows_incl`` / ``ents_incl``: int64 inclusive scans of B1's counts."""
     if _device_kind(xys, "bin_emit") == "cpu":
         return bin_emit_plain(order, xys, radii, valid, geom, caps, conics, opacities)
@@ -193,11 +189,7 @@ def bin_emit(order, xys, radii, valid, geom: BinGeometry, caps: Budgets, rows, e
     _launch("bin_emit", dev, *(_ptr(x) for x in ins), *_geom_args(geom, n),
             *(x.data_ptr() for x in counts), caps.dup_capacity, caps.span_capacity,
             tile_of.data_ptr(), rank_of.data_ptr(), counters.data_ptr())
-    bin_emit.launches += 1
     return tile_of, rank_of, counters
-
-
-bin_emit.launches = 0
 
 
 def _digits_and_blocks(keys, counters, shift):
@@ -220,8 +212,8 @@ def radix_hist_plain(keys, counters, shift: int, blocks: int, full_counts=None):
 
 def radix_hist(keys, counters, shift: int, blocks: int, full_counts=None):
     """One pass's digit histogram (int32, ``DIGITS * blocks``): B3 on CUDA
-    tensors (``radix_hist.launches``), ``radix_hist_plain`` on CPU tensors.
-    ``counters[0]`` (on the device) is the number of keys."""
+    tensors (``_build.launches["radix_hist"]``), ``radix_hist_plain`` on CPU
+    tensors. ``counters[0]`` (on the device) is the number of keys."""
     if _device_kind(keys, "radix_hist") == "cpu":
         return radix_hist_plain(keys, counters, shift, blocks, full_counts)
     for name, x in (("keys", keys), ("counters", counters)) + (
@@ -232,11 +224,7 @@ def radix_hist(keys, counters, shift: int, blocks: int, full_counts=None):
     _launch("radix_hist", keys.device, keys.data_ptr(), counters.data_ptr(), shift, blocks,
             hist.data_ptr(), _ptr(full_counts),
             0 if full_counts is None else full_counts.shape[0])
-    radix_hist.launches += 1
     return hist
-
-
-radix_hist.launches = 0
 
 
 def radix_scatter_plain(keys, vals, hist, incl, counters, shift: int, out_keys, out_vals):
@@ -257,7 +245,8 @@ def radix_scatter(keys, vals, hist, incl, counters, shift: int, out_keys, out_va
     """One stable digit pass: writes the first ``counters[0]`` keys (unless
     ``out_keys`` is None) and values to their sorted slots. ``hist`` is
     ``radix_hist``'s, ``incl`` its int32 inclusive scan. B4 on CUDA tensors
-    (``radix_scatter.launches``), ``radix_scatter_plain`` on CPU tensors."""
+    (``_build.launches["radix_scatter"]``), ``radix_scatter_plain`` on CPU
+    tensors."""
     if _device_kind(keys, "radix_scatter") == "cpu":
         return radix_scatter_plain(keys, vals, hist, incl, counters, shift, out_keys,
                                    out_vals)
@@ -270,10 +259,6 @@ def radix_scatter(keys, vals, hist, incl, counters, shift: int, out_keys, out_va
     _launch("radix_scatter", keys.device, keys.data_ptr(), vals.data_ptr(), hist.data_ptr(),
             incl.data_ptr(), counters.data_ptr(), shift, blocks, _ptr(out_keys),
             out_vals.data_ptr())
-    radix_scatter.launches += 1
-
-
-radix_scatter.launches = 0
 
 
 def sort_by_tile(keys, vals, counters, num_tiles: int, full_counts, out_vals) -> None:

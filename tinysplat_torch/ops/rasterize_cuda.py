@@ -35,8 +35,8 @@ The backward (``loss.backward()`` reaches it through ``composite_tiles``, a
 6. Autograd carries the table gradient back through the depth-order
    permutation, projection, SH and the opacity sigmoid.
 
-Every kernel wrapper launches its kernel on CUDA tensors (counted in its
-``launches``) or raises; CPU tensors run the plain PyTorch version.
+Every kernel wrapper launches its kernel on CUDA tensors (counted in
+``_build.launches``) or raises; CPU tensors run the plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -190,8 +190,8 @@ def composite_fwd(table, entry_rank, tile_starts, counts, sx, sy, tile_x: int,
     """Composite every tile's entries front to back: (num_tiles, 8,
     tile_h * tile_x).
 
-    Launches K1 on CUDA tensors (``composite_fwd.launches`` counts the
-    launches) and runs ``composite_fwd_plain`` on CPU tensors.
+    Launches K1 on CUDA tensors (``_build.launches["composite_fwd"]``
+    counts the launches) and runs ``composite_fwd_plain`` on CPU tensors.
     """
     _check_composite_args(table, entry_rank, tile_starts, counts, sx, sy, tile_x, tile_h)
     if table.device.type == "cpu":
@@ -208,11 +208,7 @@ def composite_fwd(table, entry_rank, tile_starts, counts, sx, sy, tile_x: int,
             args[1].data_ptr(), args[1].shape[0], args[2].data_ptr(), args[3].data_ptr(),
             args[4].data_ptr(), args[5].data_ptr(), num_tiles, tile_h, tile_x, SUB_X,
             order.data_ptr(), out.data_ptr())
-    composite_fwd.launches += 1
     return out
-
-
-composite_fwd.launches = 0
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -306,9 +302,9 @@ def composite_bwd(table, entry_rank, tile_starts, counts, sx, sy, out, gout,
     [x, y, conic a, b, c, opacity, c0..c3], given K1's output ``out`` and
     its cotangent ``gout`` (rows 0-4 are read: g_c0..g_c3, g_T_final).
 
-    Launches K2 on CUDA tensors (``composite_bwd.launches`` counts the
-    launches) and runs ``composite_bwd_plain`` on CPU tensors. Rows past
-    each tile's live prefix are zero.
+    Launches K2 on CUDA tensors (``_build.launches["composite_bwd"]``
+    counts the launches) and runs ``composite_bwd_plain`` on CPU tensors.
+    Rows past each tile's live prefix are zero.
 
     K2 runs one block per sub-tile, deepest live prefix first
     (``subtile_live``, ``work_order``); with several sub-tiles a tile's
@@ -337,11 +333,7 @@ def composite_bwd(table, entry_rank, tile_starts, counts, sx, sy, out, gout,
             args[5].data_ptr(), num_tiles, tile_h, tile_x, args[6].data_ptr(),
             args[7].data_ptr(), SUB_X, live.data_ptr(), order.data_ptr(), scratch.data_ptr(),
             tile_done.data_ptr(), grads.data_ptr())
-    composite_bwd.launches += 1
     return grads
-
-
-composite_bwd.launches = 0
 
 
 def _plain_blocks(num_tiles: int, p: int):
@@ -555,8 +547,8 @@ def segsum(rows: torch.Tensor, perm: torch.Tensor, bounds: torch.Tensor) -> torc
     float32 ``rows``, (D,) int32 ``perm`` and (M + 1,) int32 nondecreasing
     ``bounds`` (clamped to [0, D]; perm entries to [0, D)); returns (M, 10).
 
-    Launches K3 on CUDA tensors (``segsum.launches`` counts the launches)
-    and runs ``segsum_plain`` on CPU tensors.
+    Launches K3 on CUDA tensors (``_build.launches["segsum"]`` counts the
+    launches) and runs ``segsum_plain`` on CPU tensors.
     """
     if rows.dim() != 2 or rows.shape[1] != TABLE_COLS or rows.dtype != torch.float32:
         raise TypeError(f"rows must be float32 (D, {TABLE_COLS}), got {rows.dtype} "
@@ -582,11 +574,7 @@ def segsum(rows: torch.Tensor, perm: torch.Tensor, bounds: torch.Tensor) -> torc
     out = torch.empty((m, TABLE_COLS), dtype=torch.float32, device=rows.device)
     _launch("segsum", rows.device, rows.data_ptr(), rows.shape[0], perm.data_ptr(),
             bounds.data_ptr(), m, out.data_ptr())
-    segsum.launches += 1
     return out
-
-
-segsum.launches = 0
 
 
 def segsum_plain(rows: torch.Tensor, perm: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
@@ -661,9 +649,9 @@ def scatter_rows(rows: torch.Tensor, entry_rank: torch.Tensor, n: int) -> torch.
     sentinel); slots ranked below 0 or at n or above add nothing.
 
     Launches ``csrc/scatter_rows.cu`` on CUDA tensors
-    (``scatter_rows.launches`` counts the launches), whose atomic adds come
-    in another order each launch, and runs ``scatter_rows_plain`` on CPU
-    tensors. Raises on any other device, dtype, shape or layout.
+    (``_build.launches["scatter_rows"]`` counts the launches), whose atomic
+    adds come in another order each launch, and runs ``scatter_rows_plain``
+    on CPU tensors. Raises on any other device, dtype, shape or layout.
     """
     if rows.dim() != 2 or rows.shape[1] != TABLE_COLS or rows.dtype != torch.float32:
         raise TypeError(f"rows must be float32 (D, {TABLE_COLS}), got {rows.dtype} "
@@ -692,11 +680,7 @@ def scatter_rows(rows: torch.Tensor, entry_rank: torch.Tensor, n: int) -> torch.
     with op_range("scatter_rows"):
         _launch("scatter_rows", rows.device, rows.data_ptr(), entry_rank.data_ptr(),
                 rows.shape[0], n, out.data_ptr())
-    scatter_rows.launches += 1
     return out
-
-
-scatter_rows.launches = 0
 
 
 def scatter_rows_plain(rows: torch.Tensor, entry_rank: torch.Tensor, n: int) -> torch.Tensor:

@@ -24,8 +24,8 @@ camera gradients of ``pose_opt`` (``viewmat``, ``full_projmat``,
 block and column, and a fold kernel sums each column in a fixed order, so
 two launches give the same bytes. ``bwd_geometry`` gives S2's launch shape.
 
-Every wrapper launches its kernel on CUDA tensors (counted in its
-``launches``) or raises; CPU tensors run the plain version.
+Every wrapper launches its kernel on CUDA tensors (counted in
+``_build.launches``) or raises; CPU tensors run the plain version.
 """
 from __future__ import annotations
 
@@ -495,9 +495,10 @@ def splat_fwd(means, scales, quats, colors_dc, colors_rest, opacities, alive, vi
               layout: SplatLayout) -> SplatOutputs:
     """The splat-input layer's forward for one camera.
 
-    Launches S1 on CUDA tensors (``splat_fwd.launches`` counts the launches)
-    and runs ``splat_fwd_plain`` on CPU tensors. ``active_degree`` may be an
-    int or a 0-d tensor; on the card it is read there, never on the host.
+    Launches S1 on CUDA tensors (``_build.launches["splat_fwd"]`` counts
+    the launches) and runs ``splat_fwd_plain`` on CPU tensors.
+    ``active_degree`` may be an int or a 0-d tensor; on the card it is read
+    there, never on the host.
     """
     _check(means, scales, quats, colors_dc, colors_rest, opacities, alive, viewmat,
            full_projmat, cam_pos, layout)
@@ -523,11 +524,7 @@ def splat_fwd(means, scales, quats, colors_dc, colors_rest, opacities, alive, vi
             n, kb, layout.img_width, layout.proj_height, layout.tile_size,
             int(layout.viewdirs_mode == "position"), int(layout.antialiased),
             *(x.data_ptr() for x in out))
-    splat_fwd.launches += 1
     return out
-
-
-splat_fwd.launches = 0
 
 
 def splat_bwd(means, scales, quats, colors_dc, colors_rest, opacities, viewmat, full_projmat,
@@ -537,11 +534,11 @@ def splat_bwd(means, scales, quats, colors_dc, colors_rest, opacities, viewmat, 
     ``xys`` (N, 2), ``depths`` (N,), ``conics`` (N, 3), ``colors4`` (N, 4)
     and ``opacities`` (N,) -> the gradients ``splat_bwd_plain`` returns.
 
-    Launches S2 on CUDA tensors (``splat_bwd.launches`` counts the launches)
-    and runs ``splat_bwd_plain`` on CPU tensors. With ``cam_grad`` S2 also
-    writes one float64 partial of each camera column per block and folds
-    each column in a fixed order (a second kernel of the same launch, one
-    block a column).
+    Launches S2 on CUDA tensors (``_build.launches["splat_bwd"]`` counts
+    the launches) and runs ``splat_bwd_plain`` on CPU tensors. With
+    ``cam_grad`` S2 also writes one float64 partial of each camera column
+    per block and folds each column in a fixed order (a second kernel of the
+    same launch, one block a column).
     """
     n = means.shape[0]
     if _device_kind(means, "splat_bwd") == "cpu":
@@ -570,11 +567,7 @@ def splat_bwd(means, scales, quats, colors_dc, colors_rest, opacities, viewmat, 
             int(layout.viewdirs_mode == "position"), int(layout.antialiased),
             *(x.data_ptr() for x in outs), int(cam_grad),
             partials.data_ptr(), g_cam.data_ptr(), *geo)
-    splat_bwd.launches += 1
     return (*outs, g_cam if cam_grad else None)
-
-
-splat_bwd.launches = 0
 
 
 def bwd_occupancy(k_bases: int, device="cuda") -> dict:

@@ -21,7 +21,7 @@ semantics: an 11-tap Gaussian window (sigma 1.5), *valid* filtering, the map
 Both kernels are bound by the bytes they move (``layer_bytes``); the window
 reaches them by value, as a launch argument, so nothing is uploaded and the
 host never waits. Every wrapper launches its kernel on CUDA tensors (counted
-in its ``launches``) or raises; CPU tensors run the plain version.
+in ``_build.launches``) or raises; CPU tensors run the plain version.
 """
 from __future__ import annotations
 
@@ -211,8 +211,8 @@ def ssim_fwd(x, y, window: np.ndarray, c1: float, c2: float, n_partials: int = 0
     """SSIM's map of the (N, H, W, C) images ``x`` and ``y`` and, with
     ``n_partials`` 3 or 4, the partials ``ssim_fwd_plain`` gives.
 
-    Launches L1 on CUDA tensors (``ssim_fwd.launches`` counts the launches)
-    and runs ``ssim_fwd_plain`` on CPU tensors."""
+    Launches L1 on CUDA tensors (``_build.launches["ssim_fwd"]`` counts
+    the launches) and runs ``ssim_fwd_plain`` on CPU tensors."""
     _check(x, y)
     if n_partials not in (0, 3, 4):
         raise ValueError(f"n_partials must be 0, 3 or 4, got {n_partials}")
@@ -226,20 +226,16 @@ def ssim_fwd(x, y, window: np.ndarray, c1: float, c2: float, n_partials: int = 0
     partials = x.new_empty((n_partials,) + tuple(smap.shape) if n_partials else (1,))
     _launch("ssim_fwd", x.device, x.data_ptr(), y.data_ptr(), n, h, w, c, _host_window(window),
             taps, c1, c2, smap.data_ptr(), partials.data_ptr(), n_partials)
-    ssim_fwd.launches += 1
     return smap, partials if n_partials else None
-
-
-ssim_fwd.launches = 0
 
 
 def ssim_bwd(g, p_mu, p_xx, p_xy, self, other, window: np.ndarray):
     """The gradient of ``self`` (N, H, W, C), as ``ssim_bwd_plain`` gives it.
 
-    Launches L2 on CUDA tensors (``ssim_bwd.launches`` counts the launches)
-    and runs ``ssim_bwd_plain`` on CPU tensors. ``g`` may have any strides
-    (a broadcast is read in place); the partials are the planes of
-    ``ssim_fwd``'s."""
+    Launches L2 on CUDA tensors (``_build.launches["ssim_bwd"]`` counts
+    the launches) and runs ``ssim_bwd_plain`` on CPU tensors. ``g`` may
+    have any strides (a broadcast is read in place); the partials are the
+    planes of ``ssim_fwd``'s."""
     _check(self, other)
     if self.device.type == "cpu":
         return ssim_bwd_plain(g, p_mu, p_xx, p_xy, self, other, window)
@@ -258,11 +254,7 @@ def ssim_bwd(g, p_mu, p_xx, p_xy, self, other, window: np.ndarray):
     _launch("ssim_bwd", self.device, g.data_ptr(), g.stride(0), g.stride(1), g.stride(3),
             *(t.data_ptr() for t in parts), n, h, w, c, _host_window(window), taps,
             grad.data_ptr())
-    ssim_bwd.launches += 1
     return grad
-
-
-ssim_bwd.launches = 0
 
 
 def layer_bytes(n: int, h: int, w: int, c: int, taps: int = TAPS, n_partials: int = 3):

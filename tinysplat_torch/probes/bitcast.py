@@ -101,8 +101,8 @@ def probe_bitcast(variant: str, x: torch.Tensor, offsets: torch.Tensor = None):
     each clamped to [0, N - 32].
 
     L is a multiple of 8 (F: W of 8). Launches the kernel on CUDA tensors
-    starting on a 16-byte boundary (``probe_bitcast.launches`` counts the
-    launches) and runs ``probe_bitcast_plain`` on CPU tensors.
+    starting on a 16-byte boundary (``_build.launches["probe_bitcast"]``
+    counts the launches) and runs ``probe_bitcast_plain`` on CPU tensors.
     """
     if variant == "F" and offsets is None:
         offsets = window_offsets(WINDOW_OFFSETS, x.device)
@@ -129,11 +129,7 @@ def probe_bitcast(variant: str, x: torch.Tensor, offsets: torch.Tensor = None):
     _build.launch("probe_bitcast", _SIGNATURE, dev, VARIANTS.index(variant), x.data_ptr(),
                   out.data_ptr(), out2.data_ptr() if out2 is not None else None, rows, lanes,
                   off_t.data_ptr(), off_t.shape[0] if variant == "F" else 0, WINDOW_ROWS)
-    probe_bitcast.launches += 1
     return (out, out2.view(torch.bfloat16)) if variant == "D" else out
-
-
-probe_bitcast.launches = 0
 
 
 def probe_bitcast_plain(variant: str, x: torch.Tensor, offsets: torch.Tensor = None):

@@ -111,8 +111,8 @@ def probe_op_costs(op: str, x: torch.Tensor, iters: int = ITERS) -> torch.Tensor
     chains after ``iters`` iterations (elementwise rows), or x after
     ``iters`` triangular passes.
 
-    Launches the kernel on CUDA tensors (``probe_op_costs.launches`` counts
-    the launches) and runs ``probe_op_costs_plain`` on CPU tensors.
+    Launches the kernel on CUDA tensors (``_build.launches["probe_op_costs"]``
+    counts the launches) and runs ``probe_op_costs_plain`` on CPU tensors.
     """
     _check(op, x, iters)
     if x.device.type == "cpu":
@@ -122,11 +122,7 @@ def probe_op_costs(op: str, x: torch.Tensor, iters: int = ITERS) -> torch.Tensor
     out = torch.empty_like(x)
     _build.launch("probe_op_costs", _SIGNATURE, x.device, OPS.index(op), x.data_ptr(),
                   out.data_ptr(), x.shape[0], x.shape[1], iters)
-    probe_op_costs.launches += 1
     return out
-
-
-probe_op_costs.launches = 0
 
 
 def _tri(x: torch.Tensor) -> torch.Tensor:

@@ -98,10 +98,7 @@ def sharded_step_ms(mesh_shape, batch: int, height: int, width: int, means, colo
     of ``mesh_shape`` on ``means`` in ``capacity`` slots, its ms a step
     over ``STEP_ITERS`` after a warm-up, and the kernels' launches in all
     of them."""
-    from ..ops import binning_cuda as bc
-    from ..ops import rasterize_cuda as rc
-    from ..ops import splat_inputs_cuda as si
-    from ..ops import ssim_cuda as sc
+    from ..ops import _build
     from ..parallel import make_mesh, make_sharded_train_step, rank_device, shard_state
     from ..parallel.train_step import band_rows
     from ..train import init_opt_state
@@ -122,9 +119,8 @@ def sharded_step_ms(mesh_shape, batch: int, height: int, width: int, means, colo
     gt = torch.as_tensor(gt[d_idx * bl:(d_idx + 1) * bl][:, rows], device=dev)
     fn = make_sharded_train_step(cfg, height, width, batch, mesh)
     generator = torch.Generator(device=dev)
-    kernels = (rc.composite_fwd, rc.composite_bwd, rc.segsum, si.splat_fwd, si.splat_bwd,
-               bc.bin_count, bc.bin_emit, bc.radix_hist, bc.radix_scatter, sc.ssim_fwd,
-               sc.ssim_bwd, rc.scatter_rows)
+    kernels = ("composite_fwd", "composite_bwd", "segsum", "splat_fwd", "splat_bwd", "bin_count",
+               "bin_emit", "radix_hist", "radix_scatter", "ssim_fwd", "ssim_bwd", "scatter_rows")
 
     def step(s):
         generator.manual_seed(0)
@@ -138,7 +134,7 @@ def sharded_step_ms(mesh_shape, batch: int, height: int, width: int, means, colo
     synchronize(dev)
     ms = (time.perf_counter() - t0) / STEP_ITERS * 1e3
     return {"rank": mesh.rank, "ms": ms,
-            "launches": {k.__name__: k.launches for k in kernels}}
+            "launches": {k: _build.launches[k] for k in kernels}}
 
 
 def arg_parser() -> argparse.ArgumentParser:
