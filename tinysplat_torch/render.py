@@ -66,7 +66,7 @@ def splat_inputs(params: GaussianParams, alive, camera: CameraParams,
                          antialiased)
     out = fused_splat_inputs(
         params.means, params.scales, params.quats, params.colors_dc, params.colors_rest,
-        params.opacities, alive, camera.viewmat, camera.projmat @ camera.viewmat,
+        params.opacities, alive, camera.viewmat, camera.full_projmat,
         camera.cam_pos, camera.fx, camera.fy, camera.cx_off, camera.cy_off,
         active_sh_degree, layout)
     proj = ProjectedGaussians(out.xys, out.depths, out.radii, out.conics, out.num_tiles_hit,

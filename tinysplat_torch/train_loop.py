@@ -60,8 +60,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from .cameras import Camera, apply_pose_delta
+from .cameras import Camera
 from .config import Config
+from .frame_graph import RENDER_FIELDS, FrameGraph
 from .models.densify import densify_and_prune, prune_by_mask, reset_opacities
 from .models.densify_mcmc import relocate_and_grow
 from .models.gaussians import GaussianParams, GaussianState, compact_state, grow_capacity
@@ -170,6 +171,7 @@ class Trainer:
         self.state = state
         # Held across a step and across render_camera (see the module doc).
         self._lock = threading.RLock()
+        self._frames = FrameGraph()  # render_camera's frames (see frame_graph)
         self.device = state.alive.device
         self.opt_state = opt_state if opt_state is not None else init_opt_state(cfg, state)
         self.step = start_step
@@ -791,20 +793,19 @@ class Trainer:
     def render_camera(self, camera: Camera, dims=None, background=None):
         """Inference render of ``camera`` (refined pose under pose_opt) at
         ``dims`` (w, h), default its own: (rgb, extras). Safe to call from a
-        viewer thread while another thread trains (the trainer's lock)."""
+        viewer thread while another thread trains (the trainer's lock). On
+        the card a repeated frame replays one CUDA graph (``FrameGraph``)."""
         with span("ts.trainer.render_camera"):
             w, h = dims if dims is not None else (camera.width, camera.height)
-            bg = background if background is not None else torch.zeros(3, device=self.device)
             with self._lock, torch.no_grad():
                 state, cfg = self.state, self.cfg  # one consistent version
-                with span("ts.trainer.camera"):
-                    cam_params = camera.params(self.device)
-                    slot = self._pose_slot(camera)
-                    if slot is not None and self.pose_deltas is not None:
-                        cam_params = apply_pose_delta(cam_params, self.pose_deltas[slot])
-                return render(state.params, state.alive, cam_params, h, w,
-                              state.active_sh_degree, bg, rasterizer=cfg.rasterizer,
-                              viewdirs_mode=cfg.viewdirs_mode, tile_size=cfg.tile_size,
-                              dup_capacity=cfg.dup_capacity, max_per_tile=cfg.max_per_tile,
-                              span_capacity=cfg.span_capacity, grad_reduce=cfg.grad_reduce,
-                              tile_x=cfg.tile_x, antialiased=cfg.antialiased)
+
+                def draw(cam_params, bg):
+                    return render(state.params, state.alive, cam_params, h, w,
+                                  state.active_sh_degree, bg,
+                                  **{f: getattr(cfg, f) for f in RENDER_FIELDS})
+
+                slot = self._pose_slot(camera)
+                delta = (self.pose_deltas[slot]
+                         if slot is not None and self.pose_deltas is not None else None)
+                return self._frames.render(draw, state, cfg, camera, w, h, background, delta)
