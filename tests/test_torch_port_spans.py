@@ -11,6 +11,9 @@ installed: ``python -m pytest --noconftest tests/test_torch_port_spans.py``.
 - Under ``densify_strategy="mcmc"`` a step also records the noise's and the
   sparsity terms' spans, and a refine step the relocation's; a plain step
   records none of the three.
+- Under ``regularize_density`` a step records the density term's span, and
+  a step that rebuilds the probe the rebuild's, its sampling's and its
+  KNN's; a plain step records none of the four.
 - A step's loss and parameters are bit-equal with the profiler on and off.
 - On the card (skipped elsewhere): the spans and the device's kernels share
   one clock. Each launch of K1, K2, S1, S2, L1, L2 and ``scatter_rows`` lies
@@ -192,6 +195,45 @@ def test_mcmc_steps_record_their_spans_and_plain_steps_none():
         plain.train_step()
         plain.train_step()
     assert not {n for n, _ in parents(recorded_spans(prof))} & set(MCMC_PARENT)
+
+
+# SuGaR density's spans and the span each opens inside.
+DENSITY_PARENT = {
+    "ts.train_step.density": "ts.train_step.loss",
+    "ts.trainer.density_probe": "ts.trainer.step",
+    "ts.density.sample": "ts.trainer.density_probe",
+    "ts.density.knn": "ts.trainer.density_probe",
+}
+
+
+def test_density_steps_record_their_spans_and_plain_steps_none():
+    cpu = [torch.profiler.ProfilerActivity.CPU]
+    # The window from step 0, so no step is its start (whose prune would
+    # empty a fresh cloud); the probe rebuilt on odd steps.
+    tr = small_trainer(regularize_density=True, regularize_density_start=0,
+                       interval_densify=2, density_samples=64)
+    got = {}
+    for step in (1, 2, 3):  # steps 2 and 3 traced; 1 and 3 rebuild the probe
+        if step == 1:
+            tr.train_step()
+            continue
+        with torch.profiler.profile(activities=cpu) as prof:
+            tr.train_step()
+        got[step] = set(parents(recorded_spans(prof)))
+    assert [e["step"] for e in tr.probe_history] == [1, 3]
+    every = set(STEP_PARENT.items())
+    term = {("ts.train_step.density", "ts.train_step.loss")}
+    assert got[2] == every | term, sorted(got[2] ^ (every | term))
+    # Step 3 is no epoch boundary: no log.
+    log = {("ts.trainer.log", "ts.trainer.post_step")}
+    rebuild = (every - log) | set(DENSITY_PARENT.items())
+    assert got[3] == rebuild, sorted(got[3] ^ rebuild)
+    plain = small_trainer()
+    plain.train_step()
+    with torch.profiler.profile(activities=cpu) as prof:
+        plain.train_step()
+        plain.train_step()
+    assert not {n for n, _ in parents(recorded_spans(prof))} & set(DENSITY_PARENT)
 
 
 def test_step_bit_equal_with_the_profiler_on_and_off():

@@ -3,7 +3,8 @@
 Torch port of ``tinysplat_tpu.regularizers.density``, with its semantics:
 
 - points are sampled from the splat mixture, each splat drawn with
-  probability proportional to its ellipsoid's area (prod of its scales);
+  probability proportional to its ellipsoid's area (prod of its scales),
+  by a float64 inverse CDF of uniforms (a draw the card repeats exactly);
 - the mixture density at a point sums opacity-weighted Gaussians over its
   K = 16 nearest live splats; the inverse covariance is the analytic
   R diag(s^-2) R^T;
@@ -30,8 +31,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..cameras import CameraParams
+from ..models.densify_mcmc import relocation_targets
 from ..models.gaussians import GaussianParams
 from ..utils.device import timed
+from ..utils.profiling import span
 from ..utils.quaternions import quat_to_rotmat
 
 # Elements of one chunk's (chunk, N) distance block: 2^27 float32 = 512 MiB.
@@ -85,15 +88,22 @@ def sample_points(
 
     ``idxs`` (S,) are the sampled splats (drawn by area from ``generator``
     when None; dead splats never), ``eps`` (S, 3) the standard normals of
-    the offsets (drawn when None). Returns (points (S, 3), idxs)."""
+    the offsets (drawn when None). Returns (points (S, 3), idxs).
+
+    The draw is S uniforms from ``generator``, each mapped to its splat by
+    the float64 cumulative area (``relocation_targets``), then the normals.
+    ``torch.multinomial`` is not used: its float32 scan on the card adds in
+    an order that varies between calls, and over 262,144 splats on an H100
+    10-447 of 100,000 draws moved between two calls from one generator
+    state."""
     dev = params.means.device
     scales = torch.exp(params.scales)
     if idxs is None:
         if not bool(alive.any()):
             raise ValueError("sample_points: no live splats to sample from")
         areas = torch.where(alive, torch.abs(torch.prod(scales, dim=-1)), 0.0)
-        idxs = torch.multinomial(areas / areas.max(), num_samples, replacement=True,
-                                 generator=generator)
+        u = torch.rand((num_samples,), generator=generator, device=dev)
+        idxs = relocation_targets(areas, u)
     idxs = torch.as_tensor(idxs, device=dev).long()
     if eps is None:
         eps = torch.randn((num_samples, 3), generator=generator, device=dev)
@@ -127,6 +137,7 @@ def knn_indices(
     alive: torch.Tensor,
     k: int = 16,
     chunk: Optional[int] = None,
+    stats: Optional[dict] = None,
 ) -> torch.Tensor:
     """(S, k) int64 indices of the k nearest live splat means of each
     point, nearest first, equal distances by the lower index (as
@@ -140,7 +151,8 @@ def knn_indices(
     and are never chosen; k is clamped to the live count (when fewer than k
     splats live, the +inf ties would fill the rows with dead slots).
     ``chunk`` defaults to what keeps a block at ``KNN_BLOCK_ELEMS``. Two
-    host reads per call: the live count and the tied rows.
+    host reads per call: the live count and the tied rows. With a ``stats``
+    dict, the count of rows redone is written there (``tied_rows``).
     """
     n_live = int(alive.sum())
     if n_live == 0:
@@ -163,12 +175,13 @@ def knn_indices(
         if not out:
             return torch.zeros((0, k), dtype=torch.int64, device=means.device)
         idx = torch.cat(out)
-        if ties:
-            rows = torch.nonzero(torch.cat(ties))[:, 0]
-            for j in range(0, rows.shape[0], max(1, chunk // 2)):
-                r = rows[j:j + max(1, chunk // 2)]
-                d = torch.addmm(m_sq, points[r], means.T, alpha=-2.0)
-                idx[r] = torch.topk(_value_index_keys(d), k, dim=1, largest=False).indices
+        rows = torch.nonzero(torch.cat(ties))[:, 0] if ties else idx.new_zeros((0,))
+        if stats is not None:
+            stats["tied_rows"] = int(rows.shape[0])
+        for j in range(0, rows.shape[0], max(1, chunk // 2)):
+            r = rows[j:j + max(1, chunk // 2)]
+            d = torch.addmm(m_sq, points[r], means.T, alpha=-2.0)
+            idx[r] = torch.topk(_value_index_keys(d), k, dim=1, largest=False).indices
     return idx
 
 
@@ -252,12 +265,14 @@ def make_density_probe(
     ``idxs`` / ``eps`` / ``generator`` as in :func:`sample_points`. With a
     ``timings`` dict, the device is synchronized after each stage and the
     seconds of the sampling and of the KNN are written there
-    (``sample_s``, ``knn_s``)."""
+    (``sample_s``, ``knn_s``), with the KNN's count of tied rows
+    (``tied_rows``). Spans ``ts.density.sample`` and ``ts.density.knn``
+    cover the two stages, their syncs included."""
     dev = params.means.device
-    with timed(timings, "sample_s", dev):
+    with span("ts.density.sample"), timed(timings, "sample_s", dev):
         points, _ = sample_points(params, alive, num_samples, idxs, eps, generator)
-    with timed(timings, "knn_s", dev):
-        idx = knn_indices(points, params.means, alive, k=k)
+    with span("ts.density.knn"), timed(timings, "knn_s", dev):
+        idx = knn_indices(points, params.means, alive, k=k, stats=timings)
     # The loss recomputes beta from the live scales each step (probe_beta);
     # this snapshot is for inspection.
     return DensityProbe(points=points, knn_idx=idx, beta=probe_beta(params, idx))

@@ -283,8 +283,9 @@ def compute_losses(
 
             gate = _schedule_gate(True, cfg.regularize_density_start,
                                   cfg.regularize_density_end, step)
-            loss_density = density_loss(density_probe, params, extras["depth"], camera,
-                                        img_height, img_width, use_sdf=cfg.regularize_sdf)
+            with span("ts.train_step.density"):
+                loss_density = density_loss(density_probe, params, extras["depth"], camera,
+                                            img_height, img_width, use_sdf=cfg.regularize_sdf)
             loss = loss + gate * cfg.lambda_density * loss_density
             aux["loss_density"] = loss_density
 

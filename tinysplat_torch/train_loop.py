@@ -201,7 +201,10 @@ class Trainer:
         self.last_metrics: Dict[str, object] = {}  # the last step's, device tensors
         self.densify_history: List[dict] = []
         self.density_probe = None
-        self.probe_history: List[dict] = []  # per refresh: step, samples, live, seconds
+        # Per refresh: step, samples, live, the stages' seconds, tied_rows;
+        # the newest entry also holds the live probe's neighbour table
+        # (``knn_idx``, the probe's own tensor), which older entries drop.
+        self.probe_history: List[dict] = []
         self.eval_cameras: List[Camera] = []
         # regularize_diffusion: the guidance (built at the first refresh) and
         # the real camera set the synthetic views are appended to.
@@ -425,7 +428,9 @@ class Trainer:
         refresh = start or step % max(cfg.interval_densify, 1) == 1 or self.density_probe is None
         if not refresh:
             return
-        with self._whole_state():
+        # The refresh ends in host reads (the timings' syncs, the live
+        # count), so the span holds its whole time.
+        with span("ts.trainer.density_probe"), self._whole_state():
             if start:
                 faint = torch.sigmoid(self.state.params.opacities[:, 0]) < 0.5
                 self.state, self.opt_state = prune_by_mask(self.state, self.opt_state, faint)
@@ -433,8 +438,11 @@ class Trainer:
             self.density_probe = make_density_probe(
                 self.state.params, self.state.alive, num_samples=cfg.density_samples,
                 generator=self.generator, timings=timings)
+            if self.probe_history:  # only the newest entry holds the live table
+                self.probe_history[-1].pop("knn_idx", None)
             self.probe_history.append(dict(timings, step=step, samples=cfg.density_samples,
-                                           live=int(self.state.num_live())))
+                                           live=int(self.state.num_live()),
+                                           knn_idx=self.density_probe.knn_idx))
 
     def _maybe_refresh_diffusion_views(self) -> None:
         """On cadence inside the window, swap freshly refined synthetic views
