@@ -79,7 +79,12 @@ exits non-zero):
    the first pass; three refreshes; the objective (L1 + DSSIM over the 4
    views) falls from the state the first pass starts from; K1 bit-equal,
    K2 within 1e-5 x column max and K3 bit-equal, twice, at step 12 with
-   the depth cotangent the density term feeds. Then ``export_cli
+   the depth cotangent the density term feeds; ``density_fwd`` and
+   ``density_bwd`` once each a step from step 2, and at step 12 the term
+   through them held against its plain torch ops on the same last probe,
+   splats and rendered depth (float64 the reference, ``density_cuda``'s
+   bounds), density mode and SDF mode with the camera's gradient, and
+   their device times there (rows of the kernels' line). Then ``export_cli
    --filetype OBJ`` from the step-12 checkpoint, marching cubes at 128^3
    and Poisson at the default depth (a 256^3 grid): each mesh non-empty,
    faces in range, unit normals where a vertex has one, vertices in the
@@ -1102,10 +1107,11 @@ def probes_phase(torch):
 def counted_kernels():
     """The entry points whose launches the script zeroes and compares, by
     their keys in ``_build.launches``: K1-K3, the splat-input kernels S1 and
-    S2, the binning kernels B1-B4, SSIM's L1 and L2 and the "scatter"
-    reduction ``scatter_rows``."""
+    S2, the binning kernels B1-B4, SSIM's L1 and L2, the "scatter"
+    reduction ``scatter_rows`` and SuGaR's density term's two."""
     return ("composite_fwd", "composite_bwd", "segsum", "splat_fwd", "splat_bwd", "bin_count",
-            "bin_emit", "radix_hist", "radix_scatter", "ssim_fwd", "ssim_bwd", "scatter_rows")
+            "bin_emit", "radix_hist", "radix_scatter", "ssim_fwd", "ssim_bwd", "scatter_rows",
+            "density_fwd", "density_bwd")
 
 
 def check_launches(got, want, label):
@@ -1124,7 +1130,9 @@ def check_launches(got, want, label):
     SSIM with no backward). ``scatter_rows`` runs once a backward that K3
     does not reduce: a window's backwards go through "scatter" or "mxu"
     (K3), so K2's launches less K3's, unless ``want`` names it (a window
-    that runs "sorted" or "segment" too)."""
+    that runs "sorted" or "segment" too). The density term's two run only
+    where ``want`` names them; a count that leaves them out (a rank of
+    ``scaling_bench``) is not held to them."""
     want = dict(want)
     bins = want.pop("bins", want["composite_fwd"])
     radix = want.pop("radix", RADIX_PASSES * bins)
@@ -1133,7 +1141,8 @@ def check_launches(got, want, label):
     want = {"splat_fwd": want["composite_fwd"], "splat_bwd": want["composite_bwd"],
             "bin_count": bins, "bin_emit": bins, "radix_hist": radix, "radix_scatter": radix,
             "ssim_fwd": steps + evals, "ssim_bwd": steps,
-            "scatter_rows": want["composite_bwd"] - want["segsum"], **want}
+            "scatter_rows": want["composite_bwd"] - want["segsum"],
+            **{k: 0 for k in ("density_fwd", "density_bwd") if k in got}, **want}
     if got != want:
         raise AssertionError(f"{label}: expected launches {want}, counted {got}")
 
@@ -1508,6 +1517,57 @@ def knn_bounds(points, slots, live, k=16):
     return bound, by, points * slots * 4 * 2 / HBM_BYTES_PER_S * 1e3
 
 
+def density_kernel_gaps(torch, probe, params, depth, cam, height, width, use_sdf,
+                        camera_grad=False):
+    """SuGaR's density term on the card through its kernels (one launch of
+    each), against its plain torch ops (``takes_kernels`` refused) in
+    float32 and in float64 on the same inputs: {"loss" or a leaf's name:
+    (kernels' gap, plain float32's gap)} to float64, the loss relative, a
+    gradient over its largest |entry|. Raises unless ``density_cuda``'s
+    bounds hold. ``camera_grad``: the camera's tensors carry a gradient
+    (``pose_opt``) and are compared too."""
+    from tinysplat_torch.ops import density_cuda
+    from tinysplat_torch.regularizers.density import density_loss
+
+    splats = ("means", "quats", "scales", "opacities")
+    cams = ("viewmat", "projmat", "cx_off", "cy_off") if camera_grad else ()
+
+    def term(dtype, plain):
+        leaves = {k: getattr(params, k).detach().to(dtype).requires_grad_() for k in splats}
+        leaves["depth"] = depth.detach().to(dtype).requires_grad_()
+        c = dataclasses.replace(cam, **{f.name: getattr(cam, f.name).detach().to(dtype)
+                                        for f in dataclasses.fields(cam)})
+        for k in cams:
+            leaves[k] = getattr(c, k).clone().requires_grad_()
+        c = dataclasses.replace(c, **{k: leaves[k] for k in cams})
+        p = dataclasses.replace(params, **{k: leaves[k] for k in splats})
+        orig = density_cuda.takes_kernels
+        if plain:
+            density_cuda.takes_kernels = lambda *a: False
+        try:
+            loss = density_loss(probe._replace(points=probe.points.to(dtype)), p,
+                                leaves["depth"], c, height, width, use_sdf=use_sdf)
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        finally:
+            density_cuda.takes_kernels = orig
+        return loss.detach().double(), {k: (torch.zeros_like(v) if g is None else g).double()
+                                        for (k, v), g in zip(leaves.items(), grads)}
+
+    before = (_build.launches["density_fwd"], _build.launches["density_bwd"])
+    got = term(torch.float32, False)
+    after = (_build.launches["density_fwd"], _build.launches["density_bwd"])
+    if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+        raise AssertionError(f"the density term launched {before} -> {after}, not one each")
+    plain, ref = term(torch.float32, True), term(torch.float64, True)
+    gaps = {"loss": tuple(float(abs(x[0] - ref[0]) / abs(ref[0])) for x in (got, plain))}
+    for k, r in ref[1].items():
+        top = max(float(r.abs().max()), 1e-30)
+        gaps[k] = tuple(float((x[1][k] - r).abs().max()) / top for x in (got, plain))
+    if not density_cuda.within_tol(gaps):
+        raise AssertionError(f"the density kernels past their bounds: {gaps}")
+    return gaps
+
+
 def mesh_objective(torch, tt, state, cfg, cams, device):
     """The image loss (L1 + DSSIM) of ``state`` over ``cams`` at full
     resolution over black, averaged."""
@@ -1533,8 +1593,9 @@ def mesh_phase(torch, rc, tt, Config, gts, device="cuda", height=HEIGHT, width=W
                budgets=TRAINER_KW, mesh_256=False):
     """Phase 10: density regularization + MCMC on the bench scene, then the
     mesh both ways (and at the CLI's default --resolution 256 with
-    ``mesh_256``); see the module docstring. Returns the launches of K1,
-    K2 and K3 in its 12 steps."""
+    ``mesh_256``); see the module docstring. Returns the launches of the
+    counted kernels in its 12 steps and the density kernels' rows (device ms
+    at the last probe, the largest gap to float64) for the kernels' line."""
     from tinysplat_torch import export_cli
     from tinysplat_torch.data.synthetic import orbit_cameras
     from tinysplat_torch.io.checkpoint import load_model, save_checkpoint
@@ -1600,9 +1661,11 @@ def mesh_phase(torch, rc, tt, Config, gts, device="cuda", height=HEIGHT, width=W
             step_s.append(time.perf_counter() - t0)
             loss_density.append(float(tr.last_metrics.get("loss_density", float("nan"))))
         launches = {k: _build.launches[k] for k in kernels}
-        if cuda:
+        if cuda:  # the density term once a step from its window's start (steps count from 1)
+            terms = MESH_STEPS - cfg.regularize_density_start + 1
             check_launches(launches, {"composite_fwd": MESH_STEPS, "composite_bwd": MESH_STEPS,
-                                      "segsum": MESH_STEPS}, f"phase 10 ({MESH_STEPS} steps)")
+                                      "segsum": MESH_STEPS, "density_fwd": terms,
+                                      "density_bwd": terms}, f"phase 10 ({MESH_STEPS} steps)")
         objective["before the first refine"] = mesh_objective(
             torch, tt, load_model(ref_path, device=device), cfg, cams, device)
         objective["end"] = mesh_objective(torch, tt, tr.state, cfg, cams, device)
@@ -1663,7 +1726,10 @@ def mesh_phase(torch, rc, tt, Config, gts, device="cuda", height=HEIGHT, width=W
         cam_p = last.params(device)
         params = dataclasses.replace(st.params, **{k: t.detach() for k, t in st.params.fields()})
 
+        rendered = {}
+
         def dens(depth):
+            rendered["depth"] = depth.detach()
             return cfg.lambda_density * density_loss(probe, params, depth, cam_p, height, width)
 
         tb = {k: getattr(tr.cfg, k) for k in budgets}
@@ -1681,6 +1747,31 @@ def mesh_phase(torch, rc, tt, Config, gts, device="cuda", height=HEIGHT, width=W
         print(f"  K1 bit-equal to its plain version at step {tr.step} "
               f"({int(ti.counts.sum())} entries); the density term's depth cotangent, max "
               f"|d loss / d depth row| {depth_cot:.3e}", flush=True)
+        density_rows = {}
+        if cuda:
+            from tinysplat_torch.ops import density_cuda
+            from tinysplat_torch.probes import timed_ms
+
+            largest = 0.0
+            for use_sdf in (False, True):
+                gaps = density_kernel_gaps(torch, probe, params, rendered["depth"], cam_p,
+                                           height, width, use_sdf, camera_grad=use_sdf)
+                largest = max([largest] + [a for a, _ in gaps.values()])
+                label = "SDF mode, the camera's gradient too" if use_sdf else "density mode"
+                shown = {k: f"{a:.3g} ({b:.3g})" for k, (a, b) in gaps.items()}
+                print(f"  the density kernels at step {tr.step}, {label}: gaps to the float64 "
+                      f"plain version, kernels (plain float32): {shown}", flush=True)
+            t = density_cuda.term_inputs(probe, params, rendered["depth"], cam_p, height, width,
+                                         False)
+            _, denom = density_cuda.density_fwd(t)
+            g = torch.ones((), device=device)
+            density_rows = {name: {"ms": timed_ms(fn, 20, device_only=True), "max_gap": largest}
+                            for name, fn in (
+                                ("density_fwd", lambda: density_cuda.density_fwd(t)),
+                                ("density_bwd", lambda: density_cuda.density_bwd(g, denom, t)))}
+            print(f"  the density kernels at step {tr.step}, {probe.knn_idx.shape[0]} points x "
+                  f"{probe.knn_idx.shape[1]} over {st.capacity} slots (device ms, median of 20): "
+                  f"{ {k: round(v['ms'], 4) for k, v in density_rows.items()} }", flush=True)
 
         # The mesh, through the CLI, from the step-12 checkpoint.
         (ck12,) = [os.path.join(cfg.checkpoint_dir, f) for f in os.listdir(cfg.checkpoint_dir)]
@@ -1715,7 +1806,7 @@ def mesh_phase(torch, rc, tt, Config, gts, device="cuda", height=HEIGHT, width=W
                   f"whose faces have no area); "
                   f"K1 launches {_build.launches['composite_fwd']}{extra}", flush=True)
     print(f"  phase 10: {time.perf_counter() - phase_t0:.1f} s", flush=True)
-    return launches
+    return launches, density_rows
 
 
 def shard_start(torch, device):
@@ -3926,8 +4017,8 @@ def main() -> int:
     dataset_phase(torch, rc, tt, Config, state, deg, bg)
 
     # -- 10. density regularization + MCMC, then the mesh ---------------------------------
-    mesh_launches = mesh_phase(torch, rc, tt, Config, gts,
-                               mesh_256="--mesh-256" in sys.argv[1:])
+    mesh_launches, density_rows = mesh_phase(torch, rc, tt, Config, gts,
+                                             mesh_256="--mesh-256" in sys.argv[1:])
 
     # -- 11. multi-device training on torch.distributed ---------------------------------
     shard_launches = shard_phase(torch, Config)
@@ -4044,7 +4135,15 @@ def main() -> int:
         "launches": sum(by_phase["scatter_rows"].values()),
         "launches_by_phase": by_phase["scatter_rows"],
         **scatter_row,
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "tinysplat_torch/csrc/density.cu",
+        "replaces": "tinysplat_tpu/regularizers/density.py:246",
+        "launches": sum(by_phase[name].values()),
+        "launches_by_phase": by_phase[name],
+        **density_rows[name],
+    } for name in ("density_fwd", "density_bwd")]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,12 @@ rounding of its adds in any order (its atomics change order from launch to
 launch), the sentinel row exactly 0. The probes: P1 bit for
 bit (it moves bits as integers); P2 per row, as ``op_costs.TOLERANCE``
 states with its reasons. SSIM's L1 and L2 as ``ssim_cuda.TOL`` states,
-and two launches byte for byte.
+and two launches byte for byte. The density term's kernels against the
+plain version in float64, as ``density_cuda.TOL_LOSS`` / ``TOL_GRAD`` /
+``TOL_RATIO`` state, and the loss byte for byte across two launches.
 """
+from typing import NamedTuple
+
 import numpy as np
 import pytest
 import torch
@@ -1213,3 +1217,339 @@ def test_replayed_kernels_are_traced_under_their_names():
                                                 n)) for k in FRAME_KERNELS}
     assert got == {k: 2 * v for k, v in FRAME_KERNELS.items()}, (got, sorted(set(names)))
     assert tr._frames.counts["replays"] == 4
+
+
+# SuGaR's density term (``regularizers/density.density_loss``) through its
+# kernels ``density_fwd`` / ``density_bwd`` (``csrc/density.cu``). The
+# reference is the plain version (the same function's torch ops) run on the
+# card in float64; the loss and each leaf's gradient (means, quats, scales,
+# opacities, the depth map, and under ``pose_opt`` the camera's tensors) to
+# the bounds ``density_cuda.TOL_LOSS`` / ``TOL_GRAD`` / ``TOL_RATIO`` state
+# (``density_cuda.within_tol``).
+DENSITY_LEAVES = ("means", "quats", "scales", "opacities")
+# The edge case's identity camera: pixel (px, py) = (W/2 x/z + W/2 - 0.5,
+# H/2 y/z + H/2 - 0.5), exact in float32 at these sizes.
+EDGE_W, EDGE_H = 64, 32
+
+
+class DensityCase(NamedTuple):
+    probe: object
+    params: object
+    depth: torch.Tensor
+    camera: object
+    height: int
+    width: int
+
+
+def _density_params(means, quats, scales, opacities):
+    from tinysplat_torch.models.gaussians import GaussianParams
+
+    zeros = torch.zeros_like(means)
+    return GaussianParams(means=means, colors_dc=zeros, colors_rest=zeros[:, None],
+                          scales=scales, quats=quats, opacities=opacities)
+
+
+def _identity_camera(device):
+    from tinysplat_torch.cameras import CameraParams
+
+    proj = torch.zeros((4, 4), device=device)
+    proj[0, 0] = proj[1, 1] = proj[2, 2] = proj[3, 2] = 1.0  # w = z
+    zero = torch.zeros((), device=device)
+    return CameraParams(viewmat=torch.eye(4, device=device), projmat=proj,
+                        cam_pos=torch.zeros(3, device=device), fx=zero + 1, fy=zero + 1,
+                        cx_off=zero, cy_off=zero.clone())
+
+
+def _density_random(n, s, height, width, seed, device="cuda"):
+    """n random splats in [-1, 1]^3 seen by an orbit camera, s points drawn
+    from them with their 16 nearest, a depth map around the points' depth."""
+    from tinysplat_torch.regularizers import density as pd
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    means = torch.rand((n, 3), generator=g, device=device) * 2 - 1
+    quats = torch.randn((n, 4), generator=g, device=device)
+    scales = torch.rand((n, 3), generator=g, device=device) * 2.3 - 3.9  # 0.02-0.2
+    opac = torch.randn((n, 1), generator=g, device=device) * 1.5
+    params = _density_params(means, quats, scales, opac)
+    alive = torch.ones(n, dtype=torch.bool, device=device)
+    points, _ = pd.sample_points(params, alive, s, generator=g)
+    probe = pd.DensityProbe(points, pd.knn_indices(points, means, alive, k=16), None)
+    cam = orbit_cameras(1, width=width, height=height)[0].params(device)
+    z = (points @ cam.viewmat[:3, :3].T + cam.viewmat[:3, 3])[:, 2]
+    depth = z.mean() + 0.05 * torch.randn((height, width), generator=g, device=device)
+    return DensityCase(probe, params, depth, cam, height, width)
+
+
+def _density_edges(device="cuda"):
+    """96 splats, rows 64-95 dead (never a neighbour), under the identity
+    camera: a point inside 16 opaque splats (d > 1), one among needles whose
+    quadratic form passes 1e8, one among splats whose two smallest scale
+    axes tie, points on the image's last column and row (coincident taps)
+    and on its first, behind the camera, outside the frustum, and 24 points
+    near z = 1 whose first neighbour is the one hub splat 48."""
+    from tinysplat_torch.regularizers import density as pd
+
+    g = torch.Generator(device=device).manual_seed(8)
+    n, k = 96, 16
+    means = torch.rand((n, 3), generator=g, device=device) * 0.4 - 0.2
+    means[:, 2] += 1.0
+    quats = torch.randn((n, 4), generator=g, device=device)
+    scales = torch.rand((n, 3), generator=g, device=device) - 3.0
+    opac = torch.randn((n, 1), generator=g, device=device)
+    a, b, c = (torch.tensor(v, device=device) for v in ([0.0, 0.0, 2.0], [0.3, 0.2, 3.0],
+                                                          [-0.2, 0.1, 1.5]))
+    means[0:16], opac[0:16] = a, 5.0  # d ~ 16 at a
+    means[16:32] = b + torch.rand((16, 3), generator=g, device=device) - 0.5
+    scales[16:32] = -12.0  # Q ~ |mu|^2 e^24, past 1e8
+    means[32:48] = c + 0.05 * torch.randn((16, 3), generator=g, device=device)
+    scales[32:40] = torch.log(torch.tensor([0.1, 0.1, 0.3], device=device))
+    scales[40:48] = torch.log(torch.tensor([0.2, 0.4, 0.2], device=device))
+    x1, y1 = 1 - 2 / EDGE_W, 1 - 2 / EDGE_H  # px = W - 1, py = H - 1 at z = 1
+    fixed = torch.tensor([a.tolist(), b.tolist(), c.tolist(), [x1, 0.0, 1.0], [0.0, y1, 1.0],
+                          [x1, y1, 1.0], [-x1, -y1, 1.0], [0.0, 0.0, -1.0], [2.5, 0.0, 2.0],
+                          [0.0, -3.0, 2.0]], device=device)
+    near = torch.rand((24, 3), generator=g, device=device) * 0.8 - 0.4
+    near[:, 2] = 1.0 + 0.1 * near[:, 2]
+    points = torch.cat([fixed, near])
+    idx = torch.stack([torch.randperm(64, generator=g, device=device)[:k]
+                       for _ in range(points.shape[0])])
+    idx[0], idx[1], idx[2] = (torch.arange(r, r + k, device=device) for r in (0, 16, 32))
+    idx[3:, 0] = 48
+    idx[3:, 1:] = torch.where(idx[3:, 1:] == 48, 49, idx[3:, 1:])
+    depth = 1.0 + 0.04 * torch.rand((EDGE_H, EDGE_W), generator=g, device=device)
+    return DensityCase(pd.DensityProbe(points, idx, None),
+                       _density_params(means, quats, scales, opac), depth,
+                       _identity_camera(device), EDGE_H, EDGE_W)
+
+
+def _density_beta_only(device="cuda"):
+    """Points near z = 1 whose 16 neighbours (tiny splats at z ~ 3) are too
+    far for any Gaussian to reach them in float32 (Q > 1e3: exp(-Q / 2) is
+    0), over a flat depth map: d = 0, so the scales' gradient is beta's
+    alone, in both modes."""
+    from tinysplat_torch.regularizers import density as pd
+
+    g = torch.Generator(device=device).manual_seed(9)
+    n, s = 256, 200
+    means = torch.rand((n, 3), generator=g, device=device) - 0.5
+    means[:, 2] += 3.0
+    scales = torch.log(0.01 + 0.02 * torch.rand((n, 3), generator=g, device=device))
+    params = _density_params(means, torch.randn((n, 4), generator=g, device=device), scales,
+                             torch.randn((n, 1), generator=g, device=device))
+    points = torch.rand((s, 3), generator=g, device=device) - 0.5
+    points[:, 2] = 1.0 + 0.04 * points[:, 2]
+    idx = torch.stack([torch.randperm(n, generator=g, device=device)[:16] for _ in range(s)])
+    depth = torch.ones((EDGE_H, EDGE_W), device=device)
+    return DensityCase(pd.DensityProbe(points, idx, None), params, depth,
+                       _identity_camera(device), EDGE_H, EDGE_W)
+
+
+DENSITY_CASES = {
+    "bench size": lambda: _density_random(262_144, 100_000, 1066, 1600, seed=1),
+    "257 points": lambda: _density_random(4096, 257, 96, 128, seed=2),
+    "one point": lambda: _density_random(64, 1, 24, 32, seed=3),
+    "edges": _density_edges,
+    "beta only": _density_beta_only,
+}
+
+
+DENSITY_CAMERA = ("viewmat", "projmat", "cx_off", "cy_off")
+
+
+def _density_term(case: DensityCase, use_sdf: bool, dtype=torch.float32, beta_detached=False,
+                  camera_grad=False):
+    """(loss, {leaf: gradient, "depth": ...}) of ``density_loss`` on the
+    case's tensors in ``dtype``: the kernels on the card (float32 alone),
+    the plain version where ``_plain_density_term`` refuses them.
+    ``beta_detached`` cuts beta from the scales (the plain version);
+    ``camera_grad`` makes the camera's tensors leaves too (``pose_opt``)."""
+    import dataclasses
+
+    from tinysplat_torch.regularizers import density as pd
+
+    leaves = {k: getattr(case.params, k).detach().to(dtype).requires_grad_()
+              for k in DENSITY_LEAVES}
+    depth = case.depth.detach().to(dtype).requires_grad_()
+    cam = dataclasses.replace(case.camera, **{f.name: getattr(case.camera, f.name).to(dtype)
+                                             for f in dataclasses.fields(case.camera)})
+    cams = {k: getattr(cam, k).detach().clone().requires_grad_()
+            for k in DENSITY_CAMERA} if camera_grad else {}
+    cam = dataclasses.replace(cam, **cams)
+    probe = case.probe._replace(points=case.probe.points.to(dtype))
+    params = _density_params(leaves["means"], leaves["quats"], leaves["scales"],
+                             leaves["opacities"])
+    orig = pd.probe_beta
+    if beta_detached:
+        pd.probe_beta = lambda p, i: orig(p, i).detach()
+    names = DENSITY_LEAVES + ("depth",) + tuple(cams)
+    ref = [*leaves.values(), depth, *cams.values()]
+    try:
+        loss = pd.density_loss(probe, params, depth, cam, case.height, case.width,
+                               use_sdf=use_sdf)
+        grads = torch.autograd.grad(loss, ref, allow_unused=True)
+    finally:
+        pd.probe_beta = orig
+    return loss.detach(), {k: torch.zeros_like(r) if v is None else v
+                           for k, v, r in zip(names, grads, ref)}
+
+
+def density_gaps(case: DensityCase, use_sdf: bool, camera_grad=False):
+    """The kernels' loss gap (relative) and each leaf's gradient gap (over the
+    leaf's largest |entry|) against the plain version in float64, with the
+    plain version's own in float32 beside them: {name: (kernels, plain)}."""
+    before = (_build.launches["density_fwd"], _build.launches["density_bwd"])
+    got = _density_term(case, use_sdf, camera_grad=camera_grad)
+    after = (_build.launches["density_fwd"], _build.launches["density_bwd"])
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+    plain = _plain_density_term(case, use_sdf, torch.float32, camera_grad=camera_grad)
+    ref = _plain_density_term(case, use_sdf, torch.float64, camera_grad=camera_grad)
+    gaps = {"loss": tuple(abs(float(x[0]) - float(ref[0])) / abs(float(ref[0]))
+                          for x in (got, plain))}
+    for k, r in ref[1].items():
+        top = max(float(r.abs().max()), 1e-30)
+        gaps[k] = tuple(float((x[1][k].double() - r).abs().max()) / top for x in (got, plain))
+    return gaps, got, ref
+
+
+def density_holds(gaps) -> bool:
+    """Whether the kernels' gaps (``density_gaps``) are within the bounds."""
+    from tinysplat_torch.ops import density_cuda
+
+    return density_cuda.within_tol(gaps)
+
+
+def _plain_density_term(case: DensityCase, use_sdf: bool, dtype, **kw):
+    """``_density_term`` with the kernels' dispatch refused: the plain version
+    in ``dtype`` on the card."""
+    from tinysplat_torch.ops import density_cuda
+
+    orig = density_cuda.takes_kernels
+    density_cuda.takes_kernels = lambda *a: False
+    try:
+        return _density_term(case, use_sdf, dtype, **kw)
+    finally:
+        density_cuda.takes_kernels = orig
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["density", "sdf"])
+@pytest.mark.parametrize("name", list(DENSITY_CASES))
+def test_density_kernels_match_plain(name, mode):
+    """The loss and each leaf's gradient against the plain version in
+    float64; the edge case's dead rows get exactly 0."""
+    _need_card()
+    case = DENSITY_CASES[name]()
+    gaps, got, _ = density_gaps(case, mode == "sdf")
+    print(name, mode, gaps)
+    assert density_holds(gaps), gaps
+    if name == "edges":
+        for k in DENSITY_LEAVES:
+            assert not bool(got[1][k][64:].any()), k
+        assert bool(got[1]["means"][48].any())  # the hub's row, from 24 points
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["density", "sdf"])
+def test_density_beta_reaches_the_scales(mode):
+    """Where no Gaussian reaches its point (d = 0), the scales' gradient is
+    beta's alone: the plain version with beta detached gives 0 there, and
+    the kernels give the plain version's gradient."""
+    _need_card()
+    case = _density_beta_only()
+    _, cut = _plain_density_term(case, mode == "sdf", torch.float64, beta_detached=True)
+    assert not bool(cut["scales"].any())
+    gaps, got, ref = density_gaps(case, mode == "sdf")
+    assert float(ref[1]["scales"].abs().max()) > 0
+    assert density_holds(gaps), gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["density", "sdf"])
+@pytest.mark.parametrize("name", ["bench size", "257 points", "one point", "edges"])
+def test_density_kernels_give_the_camera_gradient(name, mode):
+    """A camera carrying a gradient (``pose_opt``) takes the kernels: its
+    viewmat, projmat, cx_off and cy_off gradients against the plain version
+    in float64, beside the splats' and the depth map's; the camera's
+    repeats bit for bit."""
+    _need_card()
+    case = DENSITY_CASES[name]()
+    gaps, got, ref = density_gaps(case, mode == "sdf", camera_grad=True)
+    print(name, mode, gaps)
+    assert set(DENSITY_CAMERA) <= set(gaps)
+    assert density_holds(gaps), gaps
+    assert float(ref[1]["viewmat"].abs().max()) > 0
+    again = _density_term(case, mode == "sdf", camera_grad=True)
+    for k in DENSITY_CAMERA:
+        assert _same_bytes(got[1][k], again[1][k]), k
+
+
+@pytest.mark.cuda
+def test_density_term_refuses_another_dtype_on_the_card():
+    """On the card the term takes float32 alone: a float64 call raises and
+    launches nothing, where the plain version would have run it."""
+    _need_card()
+    case = DENSITY_CASES["one point"]()
+    before = (_build.launches["density_fwd"], _build.launches["density_bwd"])
+    with pytest.raises(TypeError):
+        _density_term(case, False, torch.float64)
+    assert (_build.launches["density_fwd"], _build.launches["density_bwd"]) == before
+
+
+@pytest.mark.cuda
+def test_density_kernels_make_no_host_sync_and_repeat():
+    """Forward and backward queue without one host sync (the upstream
+    gradient and the count are read on the card), and the loss repeats bit
+    for bit."""
+    _need_card()
+    from tinysplat_torch.regularizers import density as pd
+
+    case = DENSITY_CASES["257 points"]()
+    means = case.params.means.requires_grad_()
+    depth = case.depth.requires_grad_()
+
+    def term():
+        return pd.density_loss(case.probe, case.params, depth, case.camera, case.height,
+                               case.width)
+
+    term().backward()  # the library is built and loaded
+    torch.cuda.synchronize()
+    means.grad = depth.grad = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = term()
+        first.backward()
+        second = term()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _same_bytes(first.detach(), second.detach())
+    assert bool(torch.isfinite(means.grad).all()) and bool(depth.grad.any())
+
+
+@pytest.mark.cuda
+def test_a_sugar_trainer_step_launches_the_density_kernels_once():
+    """One Trainer step inside SuGaR's window launches ``density_fwd`` and
+    ``density_bwd`` once each."""
+    _need_card()
+    from tinysplat_torch.config import Config
+    from tinysplat_torch.data.synthetic import synthetic_pcd
+    from tinysplat_torch.models.gaussians import init_from_pcd
+    from tinysplat_torch.scene import Scene
+    from tinysplat_torch.train_loop import Trainer
+
+    cams = orbit_cameras(2, width=128, height=96)
+    rng = np.random.default_rng(7)
+    for cam in cams:
+        cam._image = rng.uniform(0, 1, (96, 128, 3)).astype(np.float32)
+    pcd = synthetic_pcd(2048, seed=4)
+    state = init_from_pcd(pcd.xyz, pcd.colors, sh_degree=1, device="cuda")
+    tr = Trainer(Config(rasterizer="auto", sh_degree=1, warmup_densify=10**9,
+                        interval_opacity_reset=0, prefetch_images=False, seed=5,
+                        regularize_density=True, regularize_density_start=0,
+                        density_samples=512), Scene(cams, seed=1), state)
+    tr.train_step()
+    torch.cuda.synchronize()
+    before = (_build.launches["density_fwd"], _build.launches["density_bwd"])
+    tr.train_step()
+    torch.cuda.synchronize()
+    assert (_build.launches["density_fwd"] - before[0],
+            _build.launches["density_bwd"] - before[1]) == (1, 1)

@@ -31,12 +31,13 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("composite_fwd", "composite_bwd", "segsum", "probe_bitcast", "probe_op_costs",
-           "splat_fwd", "splat_bwd", "binning", "ssim", "scatter_rows")
-# Flags of one source only. The splat-input and binning kernels round every
-# product and sum on its own, as the torch ops of their plain versions do
-# (the binning kernels also spell each rounding out with intrinsics).
+           "splat_fwd", "splat_bwd", "binning", "ssim", "scatter_rows", "density")
+# Flags of one source only. The splat-input, binning and density kernels
+# round every product and sum on its own, as the torch ops of their plain
+# versions do (the binning kernels also spell each rounding out with
+# intrinsics).
 EXTRA_FLAGS = {"splat_fwd": ("-fmad=false",), "splat_bwd": ("-fmad=false",),
-               "binning": ("-fmad=false",)}
+               "binning": ("-fmad=false",), "density": ("-fmad=false",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # Accepted launches by entry-point symbol. A viewer thread and the trainer's

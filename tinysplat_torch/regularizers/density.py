@@ -33,6 +33,7 @@ import torch
 from ..cameras import CameraParams
 from ..models.densify_mcmc import relocation_targets
 from ..models.gaussians import GaussianParams
+from ..ops import density_cuda
 from ..utils.device import timed
 from ..utils.profiling import span
 from ..utils.quaternions import quat_to_rotmat
@@ -296,7 +297,15 @@ def density_loss(
     use_sdf: bool = False,
 ) -> torch.Tensor:
     """The scheduled density loss term: masked mean of |d - d_hat|, or of
-    |beta sqrt(-2 log d) - sdf_hat| in SDF mode."""
+    |beta sqrt(-2 log d) - sdf_hat| in SDF mode.
+
+    On the card the kernels of ``ops/density_cuda`` compute it and its
+    gradient, the camera's too (``density_cuda.takes_kernels``; they take
+    float32 alone and raise on anything else); on the CPU the torch ops
+    below, their plain version."""
+    if density_cuda.takes_kernels(probe, params, depth_map, camera):
+        return density_cuda.fused_density_loss(probe, params, depth_map, camera, img_height,
+                                               img_width, use_sdf)
     d = density_at_points(probe.points, probe.knn_idx, params)
     beta = probe_beta(params, probe.knn_idx)  # live scales, with gradient
     est, mask = approximate_density(probe.points, depth_map, camera, beta,
